@@ -1,0 +1,53 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+``impl`` keeps the reference's idiom (``repro/kernels/ops.py``):
+
+* ``None`` (default) — chosen by the tensor's device: a CPU tensor runs
+  the plain version, a CUDA tensor runs the CUDA kernel (or raises).
+  There is no fallback from a kernel to the plain version.
+* ``"torch"`` — the plain version on any device: the port's oracle,
+  forced only by checks that hold the kernels against it.
+* ``"cuda"`` — the CUDA kernel; a CPU tensor raises.
+
+Kernel modules import nothing CUDA-specific, so the CPU tests import
+them freely; the kernel library is built at the first launch.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import conv1d_stripe as _conv
+from repro_torch.kernels import ref
+from repro_torch.kernels import window_gather as _gather
+
+IMPLS = (None, "torch", "cuda")
+
+
+def resolve(impl: Optional[str], t: torch.Tensor) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r} not in {IMPLS}")
+    if impl is None:
+        return "cuda" if t.is_cuda else "torch"
+    return impl
+
+
+def conv1d(x, w, b=None, stride: int = 1, groups: int = 1,
+           padding: str = "SAME", *, impl: Optional[str] = None):
+    """x: ``[B, L, Cin]`` (one member) or ``[M, B, L, Cin]`` (a stacked
+    bucket; w gains the same leading M axis, b becomes ``[M, Cout]``)."""
+    stacked = x.dim() == 4
+    if resolve(impl, x) == "torch":
+        fn = ref.conv1d_stripe_stacked if stacked else ref.conv1d_stripe
+    else:
+        fn = _conv.conv1d_stripe_stacked if stacked else _conv.conv1d_stripe
+    return fn(x, w, b, stride, groups, padding)
+
+
+def window_gather(buf, patients, ends, valid, L: int, *,
+                  impl: Optional[str] = None):
+    """``[P, C, L]`` windows out of a ``[N, C, cap]`` ring."""
+    if resolve(impl, buf) == "torch":
+        return ref.window_gather(buf, patients, ends, valid, L)
+    return _gather.window_gather(buf, patients, ends, valid, L)

@@ -37,6 +37,10 @@ def pytest_configure(config):
         "multi_device: needs >= 8 forced host devices (XLA_FLAGS / "
         "REPRO_MULTI_DEVICE lane, or the subprocess wrapper in "
         "test_placement_serving.py)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the PyTorch port's CUDA "
+        "kernels); skips without one")
 
 
 @pytest.fixture(scope="session")
