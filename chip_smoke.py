@@ -9,22 +9,29 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
 
 1. environment: versions, the card's name and power limit, the build of
    every CUDA kernel from ``src/repro_torch/kernels/csrc``;
-2. each kernel against its plain PyTorch version at the main path's
-   shapes (``window_gather`` bitwise; both conv entry points within
-   rtol = atol = 1e-4 with TF32 off), with its time, the plain
-   version's time, the time of one library call where one computes the
-   same function, and the least time the card could take (bound);
-3. the main path at full width: the 60-member full zoo (30-s windows)
-   behind ``StreamingPipeline(device_ingest=True)`` and an
+2. each kernel against its plain PyTorch version at the paths' shapes
+   (``window_gather`` bitwise; both conv entry points and
+   ``flash_attention`` within rtol = atol = 1e-4 with TF32 off), with
+   its time, the plain version's time, the time of one library call
+   where one computes the same function, and the least time the card
+   could take (bound);
+3. the ECG main path at full width: the 60-member full zoo (30-s
+   windows) behind ``StreamingPipeline(device_ingest=True)`` and an
    ``EnsembleServer`` over ``DeviceWindowRef``s, with the launch
    counters reset just before and read just after; then the flush
    latency at P=8 and P=64 and checks against the plain versions;
-4. a ``kernels`` JSON line, and the last line
+4. the dense-LM serving path through ``repro_torch.launch.serve``:
+   qwen3-4b at full width and depth (36 layers; batch 4, prompt 2048,
+   32 new tokens), counters reset just before and read just after
+   (36 x 33 ``flash_attention`` launches), prefill logits against the
+   plain versions and cached decode against the teacher-forced forward;
+   then smollm-360m at the launcher's defaults;
+5. a ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds one traced flush at P=8 and at P=64 after phase 3
-(``torch.profiler``): device time by kernel and the card's idle share
-of the flush.
+and one traced qwen3-4b prefill and decode step in phase 4
+(``torch.profiler``): device time by kernel and the card's idle share.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Details (per-shape timings, the nvcc log) go to
@@ -230,6 +237,244 @@ def phase_gather(torch, np, record):
     return out
 
 
+def _attn_cases(np):
+    """The LM path's attention calls at full width, as
+    ``(label, B, Hq, Hkv, D, window, qpos, kpos)``: qwen3-4b's prefill
+    (B=4, 2048 tokens, causal) and a decode step mid-generation (the
+    2081-slot ring, 2065 slots filled, ``kpos = -1`` tail); a 512-token
+    window over the same prefill and over the ring ``fit_kv_cache``
+    builds for a 2080-token prompt (rolled by 2080 % 512, then the step's
+    own slot written); smollm-360m's prefill and a decode step at the
+    launcher's defaults (D=64, g=3)."""
+    ar = np.arange
+    ring = np.where(ar(2081) < 2065, ar(2081), -1)
+    win = np.roll(ar(2080 - 512, 2080), 2080 % 512)
+    win[2080 % 512] = 2080
+    small = np.where(ar(97) < 81, ar(97), -1)
+    return [
+        ("qwen3-4b prefill", 4, 32, 8, 128, 0, ar(2048), ar(2048)),
+        ("qwen3-4b decode", 4, 32, 8, 128, 0, np.array([2064]), ring),
+        ("qwen3-4b prefill window=512", 4, 32, 8, 128, 512, ar(2048),
+         ar(2048)),
+        ("qwen3-4b decode window=512 ring", 4, 32, 8, 128, 512,
+         np.array([2080]), win),
+        ("smollm-360m prefill", 4, 15, 5, 64, 0, ar(64), ar(64)),
+        ("smollm-360m decode", 4, 15, 5, 64, 0, np.array([80]), small),
+    ]
+
+
+def phase_flash(torch, np, F, record):
+    """``flash_attention`` against the plain version (TF32 off) at the
+    LM path's shapes, with its time, the plain version's, one
+    ``F.scaled_dot_product_attention`` call's (same boolean mask, fp32,
+    ``enable_gqa``) and the bound: 4*D FLOPs per visible (q, k) pair and
+    head against the bytes of q, o and every K/V row some query sees."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for label, B, Hq, Hkv, D, window, qp_np, kp_np in _attn_cases(np):
+        S, T = len(qp_np), len(kp_np)
+        q = torch.randn((B, S, Hq, D), device=dev, generator=gen)
+        k = torch.randn((B, T, Hkv, D), device=dev, generator=gen)
+        v = torch.randn((B, T, Hkv, D), device=dev, generator=gen)
+        qp = torch.from_numpy(qp_np.astype(np.int32)).to(dev)
+        kp = torch.from_numpy(kp_np.astype(np.int32)).to(dev)
+        run = lambda: kflash.flash_attention(q, k, v, qp, kp, causal=True,
+                                             window=window)
+        plain = lambda: ref.attention(q, k, v, qp, kp, causal=True,
+                                      window=window)
+        y, r = run(), plain()
+        torch.cuda.synchronize()
+        err = float((y - r).abs().max())
+        if not torch.allclose(y, r, rtol=TOL, atol=TOL):
+            raise AssertionError(f"flash_attention {label}: max abs err "
+                                 f"{err} beyond rtol=atol={TOL}")
+        vis = ref.visible(qp, kp, True, window)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=vis, enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2) - r).abs().max())
+        pairs = int(vis.sum())
+        live_rows = int(vis.any(0).sum())
+        flops = 4.0 * D * pairs * B * Hq
+        nbytes = 4.0 * (2 * B * S * Hq * D + 2 * B * live_rows * Hkv * D
+                        + S + T)
+        bs, os_ = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+        reps = 5 if S > 1 else 20
+        rec = {"B": B, "S": S, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
+               "window": window, "visible_pairs": pairs,
+               "ms": _time_ms(torch, run, reps),
+               "plain_ms": _time_ms(torch, plain, reps),
+               "library_ms": _time_ms(torch, lib, reps),
+               "bound_ms": 1e3 * max(bs, os_),
+               "bound_by": "operations" if os_ >= bs else "bytes",
+               "max_abs_err": err, "library_max_abs_err": lib_err}
+        print(f"  flash_attention {label:31s} B={B} S={S} T={T} "
+              f"Hq={Hq} Hkv={Hkv} D={D}: max abs err {err:.3g}; kernel "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
+              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})", flush=True)
+        out[label] = rec
+        del q, k, v, y, r, qt, kt, vt, vis
+    record["flash_attention"] = out
+    torch.cuda.empty_cache()
+    return out
+
+
+def _device_ms_by_kernel(torch, prof):
+    """{kernel name: (device ms, count)} of a ``torch.profiler`` run."""
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = (us / 1e3, e.count)
+    return out
+
+
+def phase_llm_profile(torch, r, max_len):
+    """Device time by kernel class over one traced prefill and one traced
+    decode step of the served model, and the card's idle share of the
+    untraced prefill and mean decode step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer
+
+    cfg, rt = r["cfg"], r["rt"]
+    out = {}
+    walls = {"prefill": 1e3 * r["prefill_s"],
+             "decode": r["decode_ms_per_token"]}
+    for what in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if what == "prefill":
+                _, cache = transformer.prefill(r["params"], r["tokens"], cfg,
+                                               rt, max_len=max_len)
+            else:                                   # the first step again
+                transformer.decode_step(r["params"], cache,
+                                        r["generated"][:, 0], cfg, rt)
+            torch.cuda.synchronize()
+        by = _device_ms_by_kernel(torch, prof)
+        wall = walls[what]
+        cls = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+        for name, (ms, _) in by.items():
+            key = ("flash_attention" if "flash" in name else
+                   "gemm" if "gemm" in name.lower() or "gemv" in
+                   name.lower() else "other")
+            cls[key] += ms
+        busy = sum(cls.values())
+        out[what] = {"wall_ms": wall, "device_busy_ms": busy,
+                     "idle_share": 1 - busy / wall, "by_class_ms": cls,
+                     "ops": sum(n for _, n in by.values()),
+                     "top": sorted(((k, ms, n) for k, (ms, n) in by.items()),
+                                   key=lambda t: -t[1])[:8]}
+        print(f"  profile {cfg.name} {what}: device busy {busy:.2f} ms of "
+              f"{wall:.2f} ms (untraced) -> idle share "
+              f"{1 - busy / wall:.3f}; flash_attention "
+              f"{cls['flash_attention']:.2f} ms, GEMM {cls['gemm']:.2f} ms, "
+              f"other {cls['other']:.2f} ms; {out[what]['ops']} device ops",
+              flush=True)
+        for name, ms, n in out[what]["top"]:
+            print(f"    {ms:9.3f} ms  x{n:5d}  {name[:90]}", flush=True)
+    del cache
+    return out
+
+
+def phase_llm(torch, np, record, card, argv, counters, profile=False):
+    """The dense-LM serving path through its launcher
+    (``repro_torch.launch.serve``): prefill, then a greedy decode loop,
+    with every launch counter at 0 just before and read just after; then
+    the prefill logits against the plain versions (1e-4) and the first
+    two decode steps against the teacher-forced forward on the same
+    tokens (2e-3, the reference's own bound)."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.runtime import RuntimeOptions
+
+    args = serve.parse_args(argv)
+    for c in counters:
+        c.reset()
+    r = serve.run(args)
+    launches = {c.name: c.value for c in counters}
+    cfg, B, S = r["cfg"], args.batch, args.prompt_len
+    want = cfg.num_layers * (1 + args.new_tokens)
+    print(f"  {args.arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+          f"vocab {cfg.vocab_size}; batch {B}, prompt {S}, "
+          f"{args.new_tokens} new tokens; launches {launches}", flush=True)
+    if launches["flash_attention"] != want or \
+            sum(launches.values()) != want:
+        raise AssertionError(f"{args.arch}: launches {launches}, want "
+                             f"{want} flash_attention and nothing else")
+    gen = r["generated"]
+    if tuple(gen.shape) != (B, args.new_tokens + 1) or int(gen.min()) < 0 \
+            or int(gen.max()) >= cfg.padded_vocab:
+        raise AssertionError(f"{args.arch}: generated {tuple(gen.shape)}")
+    logits = r["prefill_logits"]
+    if tuple(logits.shape) != (B, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{args.arch}: prefill logits "
+                             f"{tuple(logits.shape)} not finite")
+    max_len = S + args.new_tokens + 1
+    before = kflash.launches.value
+    plain, _ = transformer.prefill(r["params"], r["tokens"], cfg,
+                                   RuntimeOptions(impl="torch"),
+                                   max_len=max_len)
+    if kflash.launches.value != before:
+        raise AssertionError("the plain prefill launched the kernel")
+    plain_err = float((logits - plain).abs().max())
+    if not torch.allclose(logits, plain, rtol=TOL, atol=TOL):
+        raise AssertionError(f"{args.arch}: prefill logits, kernel vs "
+                             f"plain: max abs err {plain_err}")
+    del plain
+    full, _ = transformer.forward(
+        r["params"], torch.cat([r["tokens"], gen[:, :2]], dim=1), cfg,
+        r["rt"])
+    tf_err = 0.0
+    for got, at in ((logits, S - 1), (r["step_logits"][0], S),
+                    (r["step_logits"][1], S + 1)):
+        tf_err = max(tf_err, float((got - full[:, at]).abs().max()))
+        if not torch.allclose(got, full[:, at], rtol=2e-3, atol=2e-3):
+            raise AssertionError(f"{args.arch}: cached logits at position "
+                                 f"{at} vs teacher-forced forward: max abs "
+                                 f"err {tf_err}")
+    del full
+    # one more step of the served cache: the decode path never stalls
+    # the host on the card (a sync would serialise launch and compute)
+    torch.cuda.set_sync_debug_mode("error")
+    transformer.decode_step(r["params"], r["cache"], gen[:, -1], cfg,
+                            r["rt"])
+    torch.cuda.set_sync_debug_mode(0)
+    if profile:
+        rec_prof = phase_llm_profile(torch, r, max_len)
+    rec = {"arch": args.arch, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "batch": B, "prompt_len": S,
+           "new_tokens": args.new_tokens, "launches": launches,
+           "init_s": r["init_s"], "prefill_s": r["prefill_s"],
+           "decode_ms_per_token": r["decode_ms_per_token"],
+           "decode_tok_per_s": r["decode_tok_per_s"],
+           "peak_mem_gib": r["peak_mem_gib"],
+           "prefill_vs_plain_max_abs_err": plain_err,
+           "decode_vs_forward_max_abs_err": tf_err,
+           "generated_0_16": gen[0, :16].tolist(), "card": card}
+    if profile:
+        rec["profile"] = rec_prof
+    print(f"  {args.arch} on {card}: prefill {rec['prefill_s']:.4f} s, "
+          f"decode {rec['decode_ms_per_token']:.3f} ms/token "
+          f"({rec['decode_tok_per_s']:.1f} tok/s), peak memory "
+          f"{rec['peak_mem_gib']:.3f} GiB, init {rec['init_s']:.2f} s; "
+          f"prefill logits vs plain max abs err {plain_err:.3g}, cached "
+          f"vs teacher-forced {tf_err:.3g}", flush=True)
+    record[f"llm_{args.arch}"] = rec
+    del r
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_profile(torch, svc, refs, lat, record):
     """Device time by kernel over one traced flush at P=8 and P=64, and
     the idle share of the untraced flush's wall time (p50, phase 3)."""
@@ -242,12 +487,7 @@ def phase_profile(torch, svc, refs, lat, record):
                                  ProfilerActivity.CUDA]) as prof:
             svc.predict_batch(refs[:P])
             torch.cuda.synchronize()
-        by_kernel = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-                by_kernel[e.key] = (us / 1e3, e.count)
+        by_kernel = _device_ms_by_kernel(torch, prof)
         busy = sum(ms for ms, _ in by_kernel.values())
         wall = lat[P]["p50_ms"]
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
@@ -486,6 +726,7 @@ def main() -> int:
     print("phase 2: kernels against their plain versions", flush=True)
     gather = phase_gather(torch, np, record)
     conv = phase_conv(torch, np, F, specs, record)
+    flash = phase_flash(torch, np, F, record)
 
     print("phase 3: main path (full zoo)", flush=True)
     launches, conv_per_flush = phase_main(torch, np, specs, record, card,
@@ -495,6 +736,28 @@ def main() -> int:
             f"a flush launched {conv_per_flush} convs, the shape table "
             f"counts {conv[('conv1d_stripe_stacked', 64)]['calls']}")
     phase_small_reference(torch, np)
+
+    print("phase 4: dense-LM serving path (qwen3-4b, full width and "
+          "depth; smollm-360m)", flush=True)
+    from repro_torch.kernels import conv1d_stripe as kconv
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import window_gather as kgather
+    counters = (kgather.launches, kconv.launches_stacked, kconv.launches,
+                kflash.launches)
+    qwen = phase_llm(torch, np, record, card,
+                     ["--arch", "qwen3-4b", "--batch", "4", "--prompt-len",
+                      "2048", "--new-tokens", "32", "--seed", str(SEED)],
+                     counters, profile="--profile" in sys.argv)
+    if (qwen["layers"], qwen["d_model"]) != (36, 2560):
+        raise AssertionError(f"qwen3-4b served at {qwen}")
+    phase_llm(torch, np, record, card, ["--arch", "smollm-360m"], counters)
+    fp, fd = flash["qwen3-4b prefill"], flash["qwen3-4b decode"]
+    share = {"prefill": 36 * fp["ms"] / (1e3 * qwen["prefill_s"]),
+             "decode": 36 * fd["ms"] / qwen["decode_ms_per_token"]}
+    record["llm_attention_share"] = share
+    print(f"  qwen3-4b attention share (36 x kernel ms at the phase-2 "
+          f"shapes over the served time): prefill {share['prefill']:.3f}, "
+          f"decode step {share['decode']:.3f}", flush=True)
 
     def conv_row(name, key, replaces):
         t = conv[key]
@@ -522,6 +785,15 @@ def main() -> int:
                  "src/repro/kernels/conv1d_stripe.py:99"),
         conv_row("conv1d_stripe", ("conv1d_stripe", 1),
                  "src/repro/kernels/conv1d_stripe.py:62"),
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:98",
+         "launches": qwen["launches"]["flash_attention"],
+         "max_abs_err": max(v["max_abs_err"] for v in flash.values()),
+         "ms": fp["ms"], "plain_ms": fp["plain_ms"],
+         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
+         "library_ms": fp["library_ms"],
+         "shape": "qwen3-4b prefill: B=4 S=T=2048 Hq=32 Hkv=8 D=128 causal"},
     ]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start

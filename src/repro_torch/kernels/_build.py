@@ -42,6 +42,10 @@ SIGNATURES = {
     # x, w, b, y, M, B, L, Cin, K, cin_g, Cout, groups, stride, lo,
     # L_out, stream
     "conv1d_stripe_f32": ([_P, _P, _P, _P] + [_I] * 11 + [_P], _I),
+    # q, k, v, qpos, kpos, out, B, S, T, Hq, Hkv, D, causal, window,
+    # scale, stream
+    "flash_attention_f32": ([_P] * 6 + [_I] * 8 + [ctypes.c_float, _P],
+                            _I),
 }
 
 

@@ -1,0 +1,63 @@
+"""CUDA ``flash_attention``: every attention of the LM path, prefill
+(``S > 1``) and decode (``S == 1``) (source: ``csrc/flash_attention.cu``;
+replaces ``repro/kernels/flash_attention.py:98``).  Computes
+``ref.attention`` for ``Dv == D`` within the port's tolerance."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = _build.LaunchCount("flash_attention")
+
+HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    qpos: torch.Tensor, kpos: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q ``[B, S, Hq, D]``; k, v ``[B, T, Hkv, D]`` with ``Hkv | Hq``;
+    qpos ``[S]``, kpos ``[T]`` int32 (``kpos < 0`` = empty slot); all
+    float32, contiguous, on one card.  Returns ``[B, S, Hq, D]``."""
+    dev = _build.require_cuda("flash_attention", q, k, v, qpos, kpos)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.float32 or t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-D float32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             "aligned")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, T, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
+                         "match (the kernel needs Dv == D)")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: Hkv={Hkv} does not divide "
+                         f"Hq={Hq}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in "
+                         f"{HEAD_DIMS}")
+    if T == 0:
+        raise ValueError("flash_attention: no keys (T = 0)")
+    for name, t, n in (("qpos", qpos, S), ("kpos", kpos, T)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (n,):
+            raise ValueError(f"flash_attention: {name} must be [{n}] int32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if B > 65535 or Hq > 65535 or B * S >= 2 ** 31:
+        raise ValueError(f"flash_attention: B={B}, Hq={Hq}, S={S} exceed "
+                         "the kernel's grid or row index")
+    out = torch.empty_like(q)
+    scale = float(scale if scale is not None else D ** -0.5)
+    lib = _build.LIBRARY.get()
+    rc = lib.flash_attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+        kpos.data_ptr(), out.data_ptr(), B, S, T, Hq, Hkv, D, int(causal),
+        int(window), scale, _build.stream_of(q))
+    _build.check(rc, "flash_attention")
+    launches.bump()
+    return out

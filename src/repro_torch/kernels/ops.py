@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import conv1d_stripe as _conv
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import window_gather as _gather
 
@@ -51,3 +52,21 @@ def window_gather(buf, patients, ends, valid, L: int, *,
     if resolve(impl, buf) == "torch":
         return ref.window_gather(buf, patients, ends, valid, L)
     return _gather.window_gather(buf, patients, ends, valid, L)
+
+
+def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
+              scale: Optional[float] = None, impl: Optional[str] = None,
+              chunk: int = 0):
+    """GQA attention ``[B, S, Hq, D]`` (``repro/kernels/ops.py:29``).
+    The plain version is ``ref.attention``, or ``ref.attention_chunked``
+    when ``chunk`` is set; the CUDA kernel ignores ``chunk``, as the
+    reference's Pallas route does."""
+    if resolve(impl, q) == "torch":
+        if chunk:
+            return ref.attention_chunked(q, k, v, qpos, kpos, causal=causal,
+                                         window=window, scale=scale,
+                                         chunk=chunk)
+        return ref.attention(q, k, v, qpos, kpos, causal=causal,
+                             window=window, scale=scale)
+    return _flash.flash_attention(q, k, v, qpos, kpos, causal=causal,
+                                  window=window, scale=scale)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the ported kernels.
+"""Plain PyTorch versions of the ported kernels, and the attention
+oracles (``repro/kernels/ref.py``).
 
 They are the port's own reference, playing the part ``repro.kernels.ref``
 plays in the JAX package: the CPU path runs them, the tests hold them
@@ -12,10 +13,15 @@ this conv on a GPU must turn TF32 off first (``chip_smoke.py`` does).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+# masked scores are -1e30, not -inf: the online softmax relies on
+# exp(-1e30 - -1e30) = 1 being wiped by a later alpha = exp(-1e30 - m) = 0
+# (with -inf a fully masked tile gives NaN)
+NEG_INF = -1e30
 
 
 def conv_padding(L: int, K: int, stride: int,
@@ -80,3 +86,107 @@ def conv1d_stripe_stacked(x: torch.Tensor, w: torch.Tensor,
     y = torch.stack([conv1d_stripe(x[m], w[m], None, stride, groups,
                                    padding) for m in range(x.shape[0])])
     return y if b is None else y + b[:, None, None, :]
+
+
+# ------------------------------------------------------------- attention
+def visible(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """``[S, T]`` bool: key ``t`` is visible to query ``s`` when
+    ``kpos >= 0``, and ``kpos <= qpos`` if causal, and ``qpos - kpos <
+    window`` if a window is set."""
+    qp = qpos[:, None].to(torch.int32)
+    kp = kpos[None, :].to(torch.int32)
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window:
+        ok = ok & ((qp - kp) < window)
+    return ok
+
+
+def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+               window: int) -> torch.Tensor:
+    """Additive ``[S, T]`` float32 bias: 0 where visible, ``NEG_INF``
+    elsewhere."""
+    zero = torch.zeros((), dtype=torch.float32, device=qpos.device)
+    return torch.where(visible(qpos, kpos, causal, window), zero,
+                       torch.full_like(zero, NEG_INF))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              qpos: torch.Tensor, kpos: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention oracle (``repro.kernels.ref.attention``).
+
+    q: ``[B, S, Hq, D]``; k: ``[B, T, Hkv, D]``; v: ``[B, T, Hkv, Dv]``
+    (``Dv`` may differ from ``D``); ``Hkv`` divides ``Hq`` and query head
+    ``h`` reads KV head ``h // g``.  qpos ``[S]``, kpos ``[T]`` absolute
+    positions (-1 marks an empty cache slot).  A row with no visible key
+    gets the uniform mean of ``v`` over all ``T`` (every bias is
+    ``NEG_INF``).  Returns ``[B, S, Hq, Dv]``."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[3]
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, S, Hkv, g, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    logits = logits * scale + _mask_bias(qpos, kpos, causal, window)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, Hq, Dv)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kpos: torch.Tensor, qpos: Union[int, torch.Tensor], *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-token decode oracle (``repro.kernels.ref.decode_attention``).
+    q: ``[B, Hq, D]``; k, v: ``[B, T, Hkv, D]``; kpos ``[T]``; qpos the
+    query token's position (a scalar).  Returns ``[B, Hq, D]``."""
+    qp = torch.as_tensor(qpos, dtype=torch.int32, device=q.device)
+    out = attention(q[:, None], k, v, qp.reshape(1), kpos, causal=True,
+                    window=window)
+    return out[:, 0]
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      qpos: torch.Tensor, kpos: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None,
+                      chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``chunk`` keys
+    (``repro.kernels.ref.attention_chunked``): the flash-attention
+    schedule in plain tensor ops, never holding the ``[S, T]`` scores.
+    The tail chunk is padded with empty slots (``kpos = -1``).  A row
+    with no visible key gets the mean of ``v`` over every chunk."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[3]
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    pad = (-T) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = F.pad(kpos.to(torch.int32), (0, pad), value=-1)
+    qg = q.reshape(B, S, Hkv, g, D)
+    m = torch.full((B, Hkv, g, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Hkv, g, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, g, S, Dv), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, k.shape[1], chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kb).float() * scale
+        s = s.masked_fill(~visible(qpos, kpos[c0:c0 + chunk], causal,
+                                   window), NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(vb.dtype), vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, Dv).to(q.dtype)

@@ -1,10 +1,13 @@
 """Weights carried across from the JAX package.
 
-The port keeps the reference's params layout (dicts and lists, conv
-weights ``[K, Cin // groups, Cout]``), so conversion is a change of
-array type: a JAX params tree turned to numpy (``jax.tree.map(
-np.asarray, params)``), or a committed ``results/zoo_cache/*.npz``
-whose flat keys look like ``blocks/0/expand/w``.
+The port keeps the reference's params layout, so conversion is a change
+of array type.  ``params_from_numpy`` serves both trees the port has:
+the ECG ResNeXt's (dicts and lists, conv weights ``[K, Cin // groups,
+Cout]``) and the LM's (nested dicts with a list of segments whose leaves
+are stacked ``[L, ...]`` over the segment's layers).  Its input is a
+JAX params tree turned to numpy (``jax.tree.map(np.asarray, params)``),
+or, for the ECG zoo, a committed ``results/zoo_cache/*.npz`` whose flat
+keys look like ``blocks/0/expand/w``.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from repro_torch.models.ecg_resnext import map_params
 
 def params_from_numpy(tree, device: Optional[torch.device] = None):
     """A params tree of numpy arrays (the layout of the JAX package's
-    ``init_ecg``) -> the same tree of float32 tensors on ``device``."""
+    ``init_ecg`` or ``init_lm``) -> the same tree of float32 tensors on
+    ``device``."""
     return map_params(tree, lambda a: torch.from_numpy(
         np.array(a, np.float32)).to(device))
 

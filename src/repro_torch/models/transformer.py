@@ -1,0 +1,270 @@
+"""Decoder language model assembly, dense and VLM families
+(``repro/models/transformer.py``).
+
+Layers are grouped into homogeneous SEGMENTS with per-segment stacked
+``[L, ...]`` params, as in the reference; a Python loop over the layer
+index takes the place of ``lax.scan``.  Three modes:
+
+  forward(...)      full-sequence teacher forcing
+  prefill(...)      full sequence, returns (last-token logits, decode cache)
+  decode_step(...)  one token against the cache (ring buffer if windowed)
+
+Cache: {"segments": [per-segment stacked {"k", "v"}], "pos": [M] int32,
+"idx": int}.  ``decode_step`` advances the cache IN PLACE (the new key,
+value and position go into the tensors it was given) and returns it with
+``idx + 1``: a cache is never reused after it has been stepped.
+
+The ``mamba`` and ``attn_moe`` blocks and MLA attention are later slices
+of the port (ROADMAP §1 item 13) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (embed, init_embedding, init_linear,
+                                       init_rmsnorm, init_swiglu, linear,
+                                       rms_norm, swiglu, unembed)
+from repro_torch.models.runtime import RuntimeOptions
+
+_LATER = {
+    "mamba": "the SSM slice (ROADMAP §1 item 13.1: models/ssm.py, "
+             "kernel ssd)",
+    "attn_moe": "the MoE slice (ROADMAP §1 item 13.2: models/moe.py, "
+                "kernel moe_gmm)",
+    "mla": "the MLA slice (ROADMAP §1 item 13.4)",
+}
+
+
+def _not_yet(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; it comes with "
+                               f"{_LATER[what]}")
+
+
+# ----------------------------------------------------------- segments
+def segments(cfg: ArchConfig) -> List[Tuple[str, int, int]]:
+    """[(block_type, n_layers, d_ff)] — contiguous homogeneous runs."""
+    if cfg.family in ("dense", "vlm"):
+        return [("attn_dense", cfg.num_layers, cfg.d_ff)]
+    if cfg.family == "moe":
+        m = cfg.moe
+        segs = []
+        if m.first_dense_layers:
+            segs.append(("attn_dense", m.first_dense_layers,
+                         m.dense_d_ff or cfg.d_ff))
+        segs.append(("attn_moe", cfg.num_layers - m.first_dense_layers, 0))
+        return segs
+    if cfg.family == "ssm":
+        return [("mamba", cfg.num_layers, 0)]
+    raise ValueError(f"transformer.py does not assemble family "
+                     f"{cfg.family!r}")
+
+
+def _check_block(cfg: ArchConfig, btype: str) -> None:
+    if btype != "attn_dense":
+        raise _not_yet(btype)
+    if cfg.attn_type == "mla":
+        raise _not_yet("mla")
+
+
+# ----------------------------------------------------------- block
+def _init_block(gen, cfg: ArchConfig, rt: RuntimeOptions, btype: str,
+                d_ff: int, device, n: int):
+    """One segment's params, stacked over its ``n`` layers."""
+    _check_block(cfg, btype)
+    lead = (n,)
+    return {"ln1": init_rmsnorm(cfg.d_model, rt.dtype, device, lead),
+            "attn": attn.init_gqa(gen, cfg, rt.dtype, device, rt.kv_mult,
+                                  lead),
+            "ln2": init_rmsnorm(cfg.d_model, rt.dtype, device, lead),
+            "mlp": init_swiglu(gen, cfg.d_model, d_ff, rt.dtype, device,
+                               cfg.attn_bias, lead)}
+
+
+def _apply_block(p, x, btype: str, cfg: ArchConfig, rt: RuntimeOptions,
+                 positions, mode: str, cache_l, cache_pos, cache_idx):
+    """Returns (x, new_cache_l)."""
+    _check_block(cfg, btype)
+    dec = mode == "decode"
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, new_c = attn.gqa_apply(
+        p["attn"], h, positions, cfg,
+        cache=cache_l if dec else None,
+        cache_pos=cache_pos if dec else None,
+        cache_idx=cache_idx if dec else None,
+        window=rt.eff_window(cfg), causal=True, kv_mult=rt.kv_mult,
+        impl=rt.impl, chunk=rt.attn_chunk)
+    x = x + y
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu(p["mlp"], h), new_c
+
+
+# ----------------------------------------------------------- LM init
+def init_lm(gen: torch.Generator, cfg: ArchConfig, rt: RuntimeOptions,
+            device: DeviceLike = None):
+    """Random params in the reference's layout, drawn from ``gen`` on
+    ``device`` (``cuda:0`` unless the caller names another; ``gen`` must
+    live on that device)."""
+    device = resolve_device(device)
+    params = {
+        "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                rt.dtype, device, tied=cfg.tie_embeddings),
+        "final_norm": init_rmsnorm(cfg.d_model, rt.dtype, device),
+        "segments": [],
+    }
+    if cfg.frontend_dim:
+        params["frontend_proj"] = init_linear(
+            gen, cfg.frontend_dim, cfg.d_model, rt.dtype, device)
+    for btype, n, d_ff in segments(cfg):
+        params["segments"].append(
+            _init_block(gen, cfg, rt, btype, d_ff, device, n))
+    return params
+
+
+# ----------------------------------------------------------- cache init
+def _layer_cache_shape(cfg: ArchConfig, rt: RuntimeOptions, btype: str,
+                       batch: int, M: int, device, n: int = 1):
+    """One segment's empty cache, stacked over its ``n`` layers."""
+    _check_block(cfg, btype)
+    nkv = cfg.n_kv_heads * rt.kv_mult
+    shape = (n, batch, M, nkv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=rt.dtype, device=device),
+            "v": torch.zeros(shape, dtype=rt.dtype, device=device)}
+
+
+def cache_len(cfg: ArchConfig, rt: RuntimeOptions, seq_len: int) -> int:
+    w = rt.eff_window(cfg)
+    return min(seq_len, w) if w else seq_len
+
+
+def init_cache(cfg: ArchConfig, rt: RuntimeOptions, batch: int,
+               seq_len: int, device: DeviceLike = None):
+    """Empty decode cache sized for ``seq_len`` total positions."""
+    device = resolve_device(device)
+    M = cache_len(cfg, rt, seq_len)
+    return {"segments": [_layer_cache_shape(cfg, rt, btype, batch, M,
+                                            device, n)
+                         for btype, n, _ in segments(cfg)],
+            "pos": torch.full((M,), -1, dtype=torch.int32, device=device),
+            "idx": 0}
+
+
+# ----------------------------------------------------------- backbone
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked params/cache tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _run_segments(params, x, cfg, rt, positions, mode, cache, cache_pos,
+                  cache_idx):
+    """Returns (x, per-segment caches): the stacked fresh ``{"k", "v"}``
+    of every layer in prefill, the (updated in place) cache in decode,
+    None in train mode."""
+    new_seg_caches = []
+    for si, (btype, n, _) in enumerate(segments(cfg)):
+        p_seg = params["segments"][si]
+        c_seg = cache["segments"][si] if cache is not None else None
+        ys = []
+        for i in range(n):
+            c_l = _layer(c_seg, i) if c_seg is not None else None
+            x, new_c = _apply_block(_layer(p_seg, i), x, btype, cfg, rt,
+                                    positions, mode, c_l, cache_pos,
+                                    cache_idx)
+            if mode == "prefill":
+                ys.append(new_c)
+        new_seg_caches.append(_stack(ys) if mode == "prefill" else c_seg)
+    return x, new_seg_caches
+
+
+def _embed_inputs(params, cfg, rt, tokens, prefix_embeds):
+    x = embed(params["embed"], tokens.long())
+    if prefix_embeds is not None:
+        pe = linear(params["frontend_proj"], prefix_embeds.to(rt.dtype))
+        x = torch.cat([pe, x], dim=1)
+    return x.to(rt.dtype)
+
+
+def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
+            rt: RuntimeOptions, prefix_embeds: Optional[torch.Tensor] = None):
+    """Teacher-forced full-sequence logits.  tokens: ``[B, S_text]``;
+    prefix_embeds: ``[B, P, frontend_dim]`` (VLM stub).  Returns
+    (logits ``[B, S_total, V_padded]``, aux); aux is 0 (no MoE block)."""
+    x = _embed_inputs(params, cfg, rt, tokens, prefix_embeds)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x, _ = _run_segments(params, x, cfg, rt, positions, "train", None, None,
+                         None)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(params["embed"], x), torch.zeros((), device=x.device)
+
+
+def fit_kv_cache(kv, S: int, M: int, axis: int = 2):
+    """Re-layout full-prefill K/V ``[.., S, ..]`` into a ring buffer of
+    size M where slot ``p % M`` holds position p: padded with empty
+    slots when ``M > S``; when ``M < S`` the last M positions, rolled by
+    ``S % M``.  Returns (kv, pos ``[M]`` int32)."""
+    dev = next(iter(kv.values())).device
+
+    def arange(a, b):
+        return torch.arange(a, b, dtype=torch.int32, device=dev)
+
+    if M == S:
+        return kv, arange(0, S)
+    if M > S:
+        def pad(a):
+            shape = list(a.shape)
+            shape[axis] = M
+            out = a.new_zeros(shape)
+            out.narrow(axis, 0, S).copy_(a)
+            return out
+        pos = torch.cat([arange(0, S), torch.full(
+            (M - S,), -1, dtype=torch.int32, device=dev)])
+        return {k: pad(a) for k, a in kv.items()}, pos
+    kv = {k: torch.roll(a.narrow(axis, S - M, M), S % M, dims=axis)
+          for k, a in kv.items()}
+    return kv, torch.roll(arange(S - M, S), S % M)
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
+            rt: RuntimeOptions, prefix_embeds: Optional[torch.Tensor] = None,
+            max_len: Optional[int] = None):
+    """Returns (last-token logits ``[B, V_padded]``, decode cache).
+    ``max_len`` sizes the cache for the decoding to come (defaults to
+    S + 128)."""
+    x = _embed_inputs(params, cfg, rt, tokens, prefix_embeds)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    x, seg_caches = _run_segments(params, x, cfg, rt, positions, "prefill",
+                                  None, None, None)
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = unembed(params["embed"], x)[:, 0]
+    M = cache_len(cfg, rt, max_len or S + 128)
+    fitted = [fit_kv_cache(c, S, M) for c in seg_caches]
+    return logits, {"segments": [c for c, _ in fitted],
+                    "pos": fitted[0][1], "idx": S}
+
+
+def decode_step(params, cache, token: torch.Tensor, cfg: ArchConfig,
+                rt: RuntimeOptions):
+    """token: ``[B]`` int.  Returns (logits ``[B, V_padded]``, the cache
+    advanced in place, with ``idx + 1``)."""
+    x = embed(params["embed"], token.long()[:, None]).to(rt.dtype)
+    idx = cache["idx"]
+    positions = torch.full((1,), idx, dtype=torch.int32, device=x.device)
+    x, seg_caches = _run_segments(params, x, cfg, rt, positions, "decode",
+                                  cache, cache["pos"], idx)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params["embed"], x)[:, 0]
+    return logits, {"segments": seg_caches, "pos": cache["pos"],
+                    "idx": idx + 1}

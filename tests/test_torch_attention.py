@@ -1,0 +1,149 @@
+"""The port's attention against the JAX package's.
+
+* the plain ``attention`` and ``attention_chunked`` against
+  ``repro.kernels.ref.attention`` / ``ref.attention_chunked`` and the
+  Pallas ``flash_attention`` in interpret mode, at the float32 cases of
+  ``tests/test_kernels.py``, within the one tolerance of
+  ``repro_torch.testing``;
+* the plain ``decode_attention`` oracle against JAX's;
+* what the oracles give a row that sees no key (the uniform mean of v);
+* the ``ops`` dispatch: CPU tensors run the plain versions, and the CUDA
+  kernel's wrapper refuses them.
+
+The CUDA kernel itself is held against the plain version in
+``tests/test_torch_cuda.py`` (card only) and by ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pl_flash
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import ops, ref
+from repro_torch.testing import assert_close
+
+torch.set_num_threads(1)
+
+# (B, S, T, Hq, Hkv, D, causal, window): tests/test_kernels.py:24-30
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, 32, True, 0),
+    (1, 128, 128, 8, 8, 64, True, 16),
+    (2, 48, 96, 4, 1, 32, True, 0),
+    (1, 64, 64, 2, 2, 32, False, 0),
+    (1, 33, 70, 6, 3, 16, True, 24),
+]
+
+# (B, T, Hq, Hkv, D, window, fill): tests/test_kernels.py:48-52
+DECODE_CASES = [
+    (2, 128, 8, 2, 64, 0, 128),
+    (2, 128, 8, 2, 64, 0, 100),
+    (1, 96, 4, 4, 32, 32, 96),
+    (2, 80, 4, 1, 32, 0, 80),
+]
+
+
+def _qkv(B, S, T, Hq, Hkv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, Hq, D)).astype(np.float32),
+            rng.standard_normal((B, T, Hkv, D)).astype(np.float32),
+            rng.standard_normal((B, T, Hkv, D)).astype(np.float32))
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_plain_attention_matches_jax_and_pallas(case):
+    B, S, T, Hq, Hkv, D, causal, window = case
+    q, k, v = _qkv(B, S, T, Hq, Hkv, D)
+    qpos = np.arange(T - S, T, dtype=np.int32)
+    kpos = np.arange(T, dtype=np.int32)
+    want = jref.attention(*_j(q, k, v, qpos, kpos), causal=causal,
+                          window=window)
+    pallas = pl_flash(*_j(q, k, v, qpos, kpos), causal=causal,
+                      window=window, block_q=32, block_k=32, interpret=True)
+    tq, tk, tv, tqp, tkp = _t(q, k, v, qpos, kpos)
+    got = ref.attention(tq, tk, tv, tqp, tkp, causal=causal, window=window)
+    assert_close(got, want)
+    assert_close(got, pallas)
+    for chunk in (16, 32):
+        got_c = ref.attention_chunked(tq, tk, tv, tqp, tkp, causal=causal,
+                                      window=window, chunk=chunk)
+        assert_close(got_c, jref.attention_chunked(
+            *_j(q, k, v, qpos, kpos), causal=causal, window=window,
+            chunk=chunk))
+        assert_close(got_c, want)
+    # ops dispatch: a CPU tensor runs the plain version, chunked or not
+    assert_close(ops.attention(tq, tk, tv, tqp, tkp, causal=causal,
+                               window=window), want)
+    assert_close(ops.attention(tq, tk, tv, tqp, tkp, causal=causal,
+                               window=window, chunk=16), want)
+
+
+def test_plain_attention_with_dv_other_than_d_matches_jax():
+    q, k, _ = _qkv(2, 24, 40, 4, 2, 32)
+    v = np.random.default_rng(1).standard_normal((2, 40, 2, 16)).astype(
+        np.float32)
+    qpos = np.arange(16, 40, dtype=np.int32)
+    kpos = np.arange(40, dtype=np.int32)
+    want = jref.attention(*_j(q, k, v, qpos, kpos), window=12)
+    got = ref.attention(*_t(q, k, v, qpos, kpos), window=12)
+    assert tuple(got.shape) == (2, 24, 4, 16)
+    assert_close(got, want)
+    assert_close(ref.attention_chunked(*_t(q, k, v, qpos, kpos), window=12,
+                                       chunk=16),
+                 jref.attention_chunked(*_j(q, k, v, qpos, kpos), window=12,
+                                        chunk=16))
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_plain_decode_attention_matches_jax(case):
+    B, T, Hq, Hkv, D, window, fill = case
+    q, k, v = _qkv(B, 1, T, Hq, Hkv, D)
+    q = q[:, 0]
+    kpos = np.where(np.arange(T) < fill, np.arange(T), -1).astype(np.int32)
+    want = jref.decode_attention(*_j(q, k, v, kpos), jnp.asarray(fill),
+                                 window=window)
+    got = ref.decode_attention(*_t(q, k, v, kpos), fill, window=window)
+    assert_close(got, want)
+
+
+def test_rows_that_see_no_key():
+    """Query position 3 sees no key of ``kpos = [10, 11, ...]``, causal:
+    every oracle gives such a row the uniform mean of ``v`` over its
+    keys (the chunked one over the padded chunks, whose empty slots
+    hold zeros), in the port as in the reference.  The CUDA kernel
+    gives it the mean over the tiles it visits, which for a row alone
+    in its block is none: zeros (``tests/test_torch_cuda.py``)."""
+    q, k, v = _qkv(1, 2, 20, 2, 1, 16)
+    qpos = np.array([3, 12], np.int32)
+    kpos = np.arange(10, 30, dtype=np.int32)
+    want = jref.attention(*_j(q, k, v, qpos, kpos))
+    got = ref.attention(*_t(q, k, v, qpos, kpos))
+    assert_close(got, want)
+    assert_close(got[0, 0, 0], v[0].mean(0)[0])
+    want_c = jref.attention_chunked(*_j(q, k, v, qpos, kpos), chunk=16)
+    got_c = ref.attention_chunked(*_t(q, k, v, qpos, kpos), chunk=16)
+    assert_close(got_c, want_c)
+    assert_close(got_c[0, 0, 0], v[0].sum(0)[0] / 32)
+
+
+def test_ops_refuses_cpu_tensors_for_the_kernel():
+    tq, tk, tv = _t(*_qkv(1, 4, 4, 2, 1, 32))
+    pos = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kflash.flash_attention(tq, tk, tv, pos, pos)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.attention(tq, tk, tv, pos, pos, impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        ops.attention(tq, tk, tv, pos, pos, impl="pallas")

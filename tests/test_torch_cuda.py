@@ -7,14 +7,20 @@ on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The conv cases are the ones ``tests/test_torch_kernels.py`` holds the
-plain versions to against the JAX package.
+plain versions to against the JAX package; the attention cases cover
+causal and windowed prefill, ragged ``S``/``T``, empty cache slots, the
+rolled ring of a windowed decode, and ``g`` in {1, 3, 4, 16}.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import conv1d_stripe as kconv
-from repro_torch.kernels import ref
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import ops, ref
+from repro_torch.configs.registry import get_config
+from repro_torch.models import transformer
+from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.kernels import window_gather as kgather
 from repro_torch.testing import assert_bitwise, assert_close
 
@@ -104,3 +110,122 @@ def test_cuda_wrappers_check_shapes_and_count_launches(cuda_device):
     before = kconv.launches_stacked.value
     kconv.conv1d_stripe_stacked(x, w, b, 2, 8)
     assert kconv.launches_stacked.value == before + 1
+
+
+# (B, S, T, Hq, Hkv, D, causal, window, fill, roll): kpos is arange(T)
+# with slots >= fill empty (-1), rolled by `roll`; qpos the last S
+# positions before max(fill, S)
+ATTN_CASES = [
+    (2, 64, 64, 4, 2, 32, True, 0, 64, 0),
+    (1, 128, 128, 8, 8, 64, True, 16, 128, 0),      # window, g = 1
+    (2, 48, 96, 4, 1, 32, True, 0, 96, 0),          # ragged T, MQA
+    (1, 64, 64, 2, 2, 32, False, 0, 64, 0),         # not causal
+    (1, 33, 70, 6, 3, 16, True, 24, 70, 0),         # ragged S and T
+    (2, 130, 130, 8, 2, 128, True, 0, 130, 0),      # D = 128, g = 4
+    (2, 1, 200, 12, 3, 128, True, 0, 150, 0),       # decode, empty tail
+    (1, 1, 77, 4, 4, 64, True, 0, 77, 0),           # decode, g = 1
+    (2, 1, 96, 15, 5, 64, True, 40, 96, 37),        # decode, rolled ring
+    (1, 1, 100, 16, 1, 32, True, 0, 90, 0),         # decode, g = 16 > 8
+]
+
+
+def attn_inputs(case, device, seed=0):
+    B, S, T, Hq, Hkv, D, causal, window, fill, roll = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    kpos = np.where(np.arange(T) < fill, np.arange(T), -1)
+    kpos = np.roll(kpos, roll).astype(np.int32)
+    end = max(fill, S)
+    qpos = np.arange(end - S, end).astype(np.int32)
+    return [torch.from_numpy(a).to(device) for a in (q, k, v, qpos, kpos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_cuda_flash_attention_matches_plain(cuda_device, case):
+    causal, window = case[6], case[7]
+    q, k, v, qpos, kpos = attn_inputs(case, cuda_device)
+    assert bool(ref.visible(qpos, kpos, causal, window).any(1).all())
+    got = kflash.flash_attention(q, k, v, qpos, kpos, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert_close(got, ref.attention(q, k, v, qpos, kpos, causal=causal,
+                                    window=window))
+
+
+@pytest.mark.cuda
+def test_cuda_ops_attention_launches_the_kernel_only(cuda_device,
+                                                     monkeypatch):
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(ref, "attention", plain)
+    monkeypatch.setattr(ref, "attention_chunked", plain)
+    q, k, v, qpos, kpos = attn_inputs(ATTN_CASES[0], cuda_device)
+    before = kflash.launches.value
+    for chunk in (0, 16):
+        ops.attention(q, k, v, qpos, kpos, chunk=chunk)
+    assert kflash.launches.value == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_checks_its_inputs(cuda_device):
+    q, k, v, qpos, kpos = attn_inputs(ATTN_CASES[0], cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        kflash.flash_attention(q, k, v, qpos.long(), kpos)
+    with pytest.raises(ValueError, match="divide"):
+        kflash.flash_attention(q[:, :, :3].contiguous(), k, v, qpos, kpos)
+    with pytest.raises(ValueError, match="contiguous"):
+        kflash.flash_attention(q.transpose(1, 2), k, v, qpos, kpos)
+    with pytest.raises(ValueError, match="CUDA"):
+        kflash.flash_attention(q, k, v, qpos.cpu(), kpos)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_row_without_a_visible_key(cuda_device):
+    """The kernel skips every tile no row of its block can see, so a
+    decode row whose keys all lie in its future gets zeros; the plain
+    version gives it the mean of v over all T
+    (``tests/test_torch_attention.py::test_rows_that_see_no_key``)."""
+    q, k, v, qpos, kpos = attn_inputs(ATTN_CASES[7], cuda_device)
+    kpos = kpos + 1000
+    got = kflash.flash_attention(q, k, v, qpos, kpos)
+    assert torch.equal(got, torch.zeros_like(got))
+    assert_close(ref.attention(q, k, v, qpos, kpos)[0, 0, 0],
+                 v[0, :, 0].mean(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,window", [("qwen3-4b-reduced", 0),
+                                         ("smollm-360m-reduced", 16)])
+def test_cuda_lm_matches_plain_and_decode_never_syncs(cuda_device, arch,
+                                                      window):
+    """The LM on the card: prefill logits within the tolerance of the
+    plain versions; a decode step issues no host sync (a sync would
+    serialise launch and compute) and matches the teacher-forced
+    forward within the reference's 2e-3."""
+    cfg, rt = get_config(arch), RuntimeOptions(window=window)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = transformer.init_lm(gen, cfg, rt, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device=cuda_device)
+    before = kflash.launches.value
+    lg, cache = transformer.prefill(params, toks[:, :38], cfg, rt,
+                                    max_len=41)
+    assert kflash.launches.value == before + cfg.num_layers
+    plain, _ = transformer.prefill(params, toks[:, :38], cfg,
+                                   RuntimeOptions(window=window,
+                                                  impl="torch"), max_len=41)
+    assert_close(lg, plain)
+    full, _ = transformer.forward(params, toks, cfg, rt)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(2):
+            lg, cache = transformer.decode_step(params, cache,
+                                                toks[:, 38 + t], cfg, rt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_allclose(lg.cpu().numpy(), full[:, 39].cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)

@@ -2,8 +2,9 @@
 
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   anything of the JAX package (``repro``);
-* the kernel modules and ``chip_smoke.py`` hold no ``try``: nothing
-  catches a kernel build or launch to fall back to the plain version;
+* the kernel modules, the LM path's modules and ``chip_smoke.py`` hold
+  no ``try``: nothing catches a kernel build or launch to fall back to
+  the plain version;
 * an entry point built without ``device=`` runs on the card, so it
   raises when CUDA is absent;
 * a CPU tensor handed to a kernel wrapper raises instead of running the
@@ -19,16 +20,28 @@ import torch
 
 from repro_torch.configs.ecg_zoo import zoo_specs
 from repro_torch.device import resolve_device
+from repro_torch.configs.registry import get_config
 from repro_torch.kernels import conv1d_stripe as kconv
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops
 from repro_torch.kernels import window_gather as kgather
+from repro_torch.launch import serve
+from repro_torch.models import transformer
 from repro_torch.models.ecg_resnext import init_ecg
+from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.serving import aggregator as ta
 from repro_torch.serving import pipeline as tp
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the dense-LM serving path, from the launcher down to the kernel wrapper
+LM_PATH = [PORT / f for f in (
+    "launch/serve.py", "models/api.py", "models/transformer.py",
+    "models/attention.py", "models/layers.py", "models/runtime.py",
+    "models/convert.py", "configs/base.py", "configs/registry.py",
+    "configs/qwen3_4b.py", "configs/smollm_360m.py", "kernels/ops.py",
+    "kernels/ref.py", "kernels/flash_attention.py")]
 
 
 def _imports(path):
@@ -47,8 +60,12 @@ def test_port_imports_no_jax_and_no_reference_package(path):
     assert not bad, f"{path}: imports {bad}"
 
 
+def test_lm_path_modules_are_checked():
+    assert set(LM_PATH) <= set(PORT_FILES)
+
+
 def test_no_try_around_kernels_or_in_chip_smoke():
-    files = sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*.py")) \
+    files = sorted((PORT / "kernels").glob("*.py")) + LM_PATH \
         + [ROOT / "chip_smoke.py"]
     for path in files:
         tree = ast.parse(path.read_text())
@@ -79,6 +96,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         ta.agg_init(2, 3, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
+    cfg = get_config("qwen3-4b-reduced")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen3-4b-reduced", "--new-tokens", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_lm(torch.Generator(), cfg, RuntimeOptions())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_cache(cfg, RuntimeOptions(), 1, 8)
     assert resolve_device("cpu") == torch.device("cpu")
     assert tp.EnsembleService([_member()], device="cpu").device.type == "cpu"
 
@@ -102,6 +126,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ops.conv1d(x, w, impl="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.window_gather(torch.zeros(1, 3, 8), i, i, i, 4, impl="cuda")
+    q, pos = torch.zeros(1, 4, 2, 32), torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kflash.flash_attention(q, q[:, :, :1].contiguous(),
+                               q[:, :, :1].contiguous(), pos, pos)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.attention(q, q, q, pos, pos, impl="cuda")
 
 
 def test_cpu_service_with_cuda_impl_raises_not_falls_back():
