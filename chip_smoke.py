@@ -26,11 +26,26 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    (36 x 33 ``flash_attention`` launches), prefill logits against the
    plain versions and cached decode against the teacher-forced forward;
    then smollm-360m at the launcher's defaults;
-5. a ``kernels`` JSON line, and the last line
+5. the pure-SSM path: mamba2-2.7b at full width and depth (64 layers;
+   the same traffic), exactly 64 ``ssd`` and 192 ``conv1d_stripe``
+   launches (decode launches no kernel, as in the reference), the same
+   checks as phase 4;
+6. the MoE path: phi3.5-moe-42b-a6.6b at full width, depth cut to 10
+   of its 32 layers (fp32 weights of all 32 are 166 GB), the same
+   traffic at capacity factor 1.25, exactly 330 ``flash_attention`` and
+   330 ``moe_gmm`` launches; routing compared kernel against plain
+   (near-tie flips reported), each MoE layer held kernel against plain
+   on the same input, dropped choices counted, one more served decode
+   step held kernel against plain, and the cached decode against the
+   teacher-forced forward at a capacity that drops nothing;
+7. a ``kernels`` JSON line (the six ported kernels), and the last line
    ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds one traced flush at P=8 and at P=64 after phase 3
-and one traced qwen3-4b prefill and decode step in phase 4
+Phase 2 also holds ``ssd`` (y and hT) and ``moe_gmm`` against their
+plain versions at the served shapes and at ragged ones, and the 3-D
+conv at the mamba short-conv shapes.  ``--profile`` adds one traced
+flush at P=8 and at P=64 after phase 3 and one traced prefill and
+decode step of qwen3-4b, mamba2-2.7b and phi3.5-moe
 (``torch.profiler``): device time by kernel and the card's idle share.
 
 Any failed check raises, so the exit code is non-zero and no result line
@@ -39,6 +54,7 @@ is printed.  Details (per-shape timings, the nvcc log) go to
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -85,11 +101,12 @@ def _conv_calls(spec, inner_width, conv_padding):
     return calls
 
 
-def _conv_bound(np, conv_padding, M, B, L, Cin, Cout, K, groups, stride):
+def _conv_bound(np, conv_padding, M, B, L, Cin, Cout, K, groups, stride,
+                padding="SAME"):
     """(seconds if bytes bound, seconds if fp32 operations bound) for one
     conv: each input read once and the output written once; the FMAs
     that land inside [0, L) (padding taps do no work)."""
-    lo, _, L_out = conv_padding(L, K, stride, "SAME")
+    lo, _, L_out = conv_padding(L, K, stride, padding)
     li = np.arange(L_out)[:, None] * stride + np.arange(K)[None, :] - lo
     taps = int(((li >= 0) & (li < L)).sum())
     cin_g = Cin // groups
@@ -324,6 +341,175 @@ def phase_flash(torch, np, F, record):
     return out
 
 
+def phase_mamba_conv(torch, np, F, record):
+    """The 3-D ``conv1d_stripe`` at the mamba2-2.7b short-conv shapes
+    (depthwise, K = 4, CAUSAL: x at 5120 channels, B and C at 128;
+    B = 4, L = 2048) against the plain version, with its time, the plain
+    version's, one cuDNN depthwise ``F.conv1d``'s and the bound."""
+    from repro_torch.kernels import conv1d_stripe as kconv
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ref import conv_padding
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for ch in (5120, 128):
+        B, L, K = 4, 2048, 4
+        x = torch.randn((B, L, ch), device=dev, generator=gen)
+        w = torch.randn((K, 1, ch), device=dev, generator=gen) / math.sqrt(K)
+        b = torch.randn((ch,), device=dev, generator=gen)
+        run = lambda: kconv.conv1d_stripe(x, w, b, 1, ch, "CAUSAL")
+        plain = lambda: ref.conv1d_stripe(x, w, b, 1, ch, "CAUSAL")
+        y, r = run(), plain()
+        torch.cuda.synchronize()
+        err = float((y - r).abs().max())
+        if not torch.allclose(y, r, rtol=TOL, atol=TOL):
+            raise AssertionError(f"conv1d_stripe mamba C={ch}: max abs err "
+                                 f"{err} beyond rtol=atol={TOL}")
+        xp = F.pad(x.transpose(1, 2), (K - 1, 0)).contiguous()
+        wl = w.permute(2, 1, 0).contiguous()
+        lib = lambda: F.conv1d(xp, wl, b, 1, 0, 1, ch)
+        bs, os_ = _conv_bound(np, conv_padding, 1, B, L, ch, ch, K, ch, 1,
+                              "CAUSAL")
+        rec = {"B": B, "L": L, "C": ch, "K": K, "ms": _time_ms(torch, run),
+               "plain_ms": _time_ms(torch, plain),
+               "library_ms": _time_ms(torch, lib),
+               "bound_ms": 1e3 * max(bs, os_),
+               "bound_by": "operations" if os_ >= bs else "bytes",
+               "max_abs_err": err}
+        print(f"  conv1d_stripe mamba short conv [{B},{L},{ch}] K={K} "
+              f"depthwise CAUSAL: max abs err {err:.3g}; kernel "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, cuDNN "
+              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})", flush=True)
+        out[ch] = rec
+        del x, w, b, y, r, xp, wl
+    record["conv1d_stripe_mamba"] = out
+    return out
+
+
+def _ssd_bound(B, S, H, P, G, N, chunk, with_h0):
+    """(bytes s, operations s) of one ``ssd`` call: x, dt, B, C, A, D
+    (and h0) read once, y and hT written once; per chunk of r rows the
+    causal half of C B^T and of W x (the r (r + 1) / 2 pairs j <= i:
+    r (r + 1) N and r (r + 1) P FLOPs), 2 r N P (C h^T) and 2 r P N (the
+    state update)."""
+    nbytes = 4.0 * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N
+                    + 2 * H + (2 if with_h0 else 1) * B * H * P * N)
+    flops = 0.0
+    for s0 in range(0, S, chunk):
+        r = min(chunk, S - s0)
+        flops += r * (r + 1.0) * (N + P) + 4.0 * r * N * P
+    flops *= B * H
+    return nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+
+
+def phase_ssd(torch, record):
+    """``ssd`` against the plain version (y and hT, rtol = atol = 1e-4)
+    at the mamba2-2.7b prefill shape (B = 4, S = 2048, H = 80, P = 64,
+    G = 1, N = 128, chunk 128), at a ragged S = 2000, with a random h0,
+    and at G = 2; inputs at unit scale (x, h0 ~ N(0, 1); B ~ N(0, 1),
+    C ~ N(0, 1/N) so C B^T is O(1); dt = softplus(N(0, 1)); A = -U(1,
+    16), Mamba-2's range)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as kssd
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for label, S, G, with_h0 in (("served", 2048, 1, False),
+                                 ("ragged S=2000", 2000, 1, False),
+                                 ("h0", 2048, 1, True),
+                                 ("G=2", 2048, 2, False)):
+        B, H, P, N, chunk = 4, 80, 64, 128, 128
+        x = torch.randn((B, S, H, P), device=dev, generator=gen)
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, H), device=dev, generator=gen))
+        A = -(1 + 15 * torch.rand((H,), device=dev, generator=gen))
+        Bm = torch.randn((B, S, G, N), device=dev, generator=gen)
+        Cm = torch.randn((B, S, G, N), device=dev, generator=gen) \
+            / math.sqrt(N)
+        D = torch.randn((H,), device=dev, generator=gen)
+        h0 = torch.randn((B, H, P, N), device=dev, generator=gen) \
+            if with_h0 else None
+        run = lambda: kssd.ssd(x, dt, A, Bm, Cm, D, chunk, h0)
+        plain = lambda: ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk, h0)
+        (y, hT), (yr, hr) = run(), plain()
+        torch.cuda.synchronize()
+        err = max(float((y - yr).abs().max()), float((hT - hr).abs().max()))
+        if not (torch.allclose(y, yr, rtol=TOL, atol=TOL)
+                and torch.allclose(hT, hr, rtol=TOL, atol=TOL)):
+            raise AssertionError(f"ssd {label}: max abs err {err} beyond "
+                                 f"rtol=atol={TOL}")
+        bs, os_ = _ssd_bound(B, S, H, P, G, N, chunk, with_h0)
+        rec = {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
+               "chunk": chunk, "h0": with_h0,
+               "y_abs_max": float(yr.abs().max()),
+               "ms": _time_ms(torch, run), "plain_ms": _time_ms(torch, plain),
+               "bound_ms": 1e3 * max(bs, os_),
+               "bound_by": "operations" if os_ >= bs else "bytes",
+               "max_abs_err": err}
+        print(f"  ssd {label:14s} B={B} S={S} H={H} P={P} G={G} N={N}: max "
+              f"abs err {err:.3g} (|y| up to {rec['y_abs_max']:.3g}); "
+              f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+              flush=True)
+        out[label] = rec
+        del x, dt, Bm, Cm, h0, y, hT, yr, hr
+    record["ssd"] = out
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gmm(torch, record):
+    """``moe_gmm`` against the plain version (rtol = atol = 1e-4) at the
+    phi3.5-moe shapes: prefill (B = 4, prompt 2048: C = 324 a sequence,
+    [16, 1296, 4096]), decode (B = 4: [16, 16, 4096]), and a C and an f
+    off the kernel's tiles ([4, 37, 4096], f = 1000); inputs at unit
+    scale (x ~ N(0, 1), each weight ~ N(0, 1/fan-in of its contracted
+    axis)).  Bound: 6 E C d f FLOPs against the bytes of x, the three
+    weights and y."""
+    from repro_torch.kernels import moe_gmm as kgmm
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for label, E, C, d, f in (("prefill", 16, 1296, 4096, 6400),
+                              ("decode", 16, 16, 4096, 6400),
+                              ("ragged", 4, 37, 4096, 1000)):
+        x = torch.randn((E, C, d), device=dev, generator=gen)
+        wg = torch.randn((E, d, f), device=dev, generator=gen) / math.sqrt(d)
+        wu = torch.randn((E, d, f), device=dev, generator=gen) / math.sqrt(d)
+        wd = torch.randn((E, f, d), device=dev, generator=gen) / math.sqrt(f)
+        run = lambda: kgmm.moe_gmm(x, wg, wu, wd)
+        plain = lambda: ref.moe_gmm(x, wg, wu, wd)
+        y, r = run(), plain()
+        torch.cuda.synchronize()
+        err = float((y - r).abs().max())
+        if not torch.allclose(y, r, rtol=TOL, atol=TOL):
+            raise AssertionError(f"moe_gmm {label}: max abs err {err} beyond "
+                                 f"rtol=atol={TOL}")
+        nbytes = 4.0 * (2 * E * C * d + 3 * E * d * f)
+        bs, os_ = nbytes / HBM_BYTES_S, 6.0 * E * C * d * f / FP32_FLOP_S
+        reps = 3 if label == "prefill" else 10
+        rec = {"E": E, "C": C, "d": d, "f": f,
+               "ms": _time_ms(torch, run, reps),
+               "plain_ms": _time_ms(torch, plain, reps),
+               "bound_ms": 1e3 * max(bs, os_),
+               "bound_by": "operations" if os_ >= bs else "bytes",
+               "max_abs_err": err, "y_abs_max": float(r.abs().max())}
+        print(f"  moe_gmm {label:7s} [{E},{C},{d}] f={f}: max abs err "
+              f"{err:.3g}; kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})", flush=True)
+        out[label] = rec
+        del x, wg, wu, wd, y, r
+    record["moe_gmm"] = out
+    torch.cuda.empty_cache()
+    return out
+
+
 def _device_ms_by_kernel(torch, prof):
     """{kernel name: (device ms, count)} of a ``torch.profiler`` run."""
     out = {}
@@ -359,11 +545,15 @@ def phase_llm_profile(torch, r, max_len):
             torch.cuda.synchronize()
         by = _device_ms_by_kernel(torch, prof)
         wall = walls[what]
-        cls = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+        cls = {"flash_attention": 0.0, "ssd": 0.0, "moe_gmm": 0.0,
+               "conv1d_stripe": 0.0, "gemm": 0.0, "other": 0.0}
         for name, (ms, _) in by.items():
+            low = name.lower()
             key = ("flash_attention" if "flash" in name else
-                   "gemm" if "gemm" in name.lower() or "gemv" in
-                   name.lower() else "other")
+                   "ssd" if "ssd_chunk" in name else
+                   "moe_gmm" if "gmm_kernel" in name else
+                   "conv1d_stripe" if "conv1d_stripe" in name else
+                   "gemm" if "gemm" in low or "gemv" in low else "other")
             cls[key] += ms
         busy = sum(cls.values())
         out[what] = {"wall_ms": wall, "device_busy_ms": busy,
@@ -373,75 +563,125 @@ def phase_llm_profile(torch, r, max_len):
                                    key=lambda t: -t[1])[:8]}
         print(f"  profile {cfg.name} {what}: device busy {busy:.2f} ms of "
               f"{wall:.2f} ms (untraced) -> idle share "
-              f"{1 - busy / wall:.3f}; flash_attention "
-              f"{cls['flash_attention']:.2f} ms, GEMM {cls['gemm']:.2f} ms, "
-              f"other {cls['other']:.2f} ms; {out[what]['ops']} device ops",
-              flush=True)
+              f"{1 - busy / wall:.3f}; "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in cls.items() if v)
+              + f"; {out[what]['ops']} device ops", flush=True)
         for name, ms, n in out[what]["top"]:
             print(f"    {ms:9.3f} ms  x{n:5d}  {name[:90]}", flush=True)
     del cache
     return out
 
 
-def phase_llm(torch, np, record, card, argv, counters, profile=False):
-    """The dense-LM serving path through its launcher
-    (``repro_torch.launch.serve``): prefill, then a greedy decode loop,
-    with every launch counter at 0 just before and read just after; then
-    the prefill logits against the plain versions (1e-4) and the first
-    two decode steps against the teacher-forced forward on the same
-    tokens (2e-3, the reference's own bound)."""
-    from repro_torch.kernels import flash_attention as kflash
+def _serve_counted(torch, argv, counters, expected, cfg=None):
+    """Serve one batch through the launcher (``repro_torch.launch.serve``)
+    with every launch counter at 0 just before and read just after, and
+    hold the counts to ``expected(cfg, args)`` ({kernel: launches}; every
+    other kernel 0) and the outputs to their shapes.  Returns (args, the
+    run's result, the counts)."""
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
-    from repro_torch.models.runtime import RuntimeOptions
 
     args = serve.parse_args(argv)
     for c in counters:
         c.reset()
-    r = serve.run(args)
+    r = serve.run(args, cfg=cfg)
     launches = {c.name: c.value for c in counters}
     cfg, B, S = r["cfg"], args.batch, args.prompt_len
-    want = cfg.num_layers * (1 + args.new_tokens)
-    print(f"  {args.arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+    want = {c.name: 0 for c in counters}
+    want.update(expected(cfg, args))
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}; batch {B}, prompt {S}, "
           f"{args.new_tokens} new tokens; launches {launches}", flush=True)
-    if launches["flash_attention"] != want or \
-            sum(launches.values()) != want:
-        raise AssertionError(f"{args.arch}: launches {launches}, want "
-                             f"{want} flash_attention and nothing else")
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: launches {launches}, want {want}")
     gen = r["generated"]
     if tuple(gen.shape) != (B, args.new_tokens + 1) or int(gen.min()) < 0 \
             or int(gen.max()) >= cfg.padded_vocab:
-        raise AssertionError(f"{args.arch}: generated {tuple(gen.shape)}")
+        raise AssertionError(f"{cfg.name}: generated {tuple(gen.shape)}")
     logits = r["prefill_logits"]
     if tuple(logits.shape) != (B, cfg.padded_vocab) or \
             not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"{args.arch}: prefill logits "
+        raise AssertionError(f"{cfg.name}: prefill logits "
                              f"{tuple(logits.shape)} not finite")
+    return args, r, launches
+
+
+def _plain_prefill(torch, r, counters, max_len, rt, moe_inputs=None):
+    """The prefill again through the plain versions (no kernel may
+    launch)."""
+    from repro_torch.models import transformer
+
+    before = [c.value for c in counters]
+    plain, _ = transformer.prefill(r["params"], r["tokens"], r["cfg"], rt,
+                                   max_len=max_len, moe_inputs=moe_inputs)
+    if [c.value for c in counters] != before:
+        raise AssertionError("the plain prefill launched a kernel")
+    return plain
+
+
+def _check_teacher_forced(torch, name, cached, full, S):
+    """Cached logits (``cached[t]``, the prefill's then each decode
+    step's, at position S - 1 + t) against the teacher-forced forward
+    ``full`` on the same tokens, within 2e-3 (the reference's bound,
+    ``tests/test_arch_smoke.py:87-93``).  Returns the max abs error."""
+    err = 0.0
+    for t, got in enumerate(cached):
+        want = full[:, S - 1 + t]
+        err = max(err, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=2e-3, atol=2e-3):
+            raise AssertionError(f"{name}: cached logits at position "
+                                 f"{S - 1 + t} vs teacher-forced forward: "
+                                 f"max abs err {err}")
+    return err
+
+
+def _llm_record(r, args, launches, card, **extra):
+    cfg = r["cfg"]
+    rec = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "batch": args.batch,
+           "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
+           "launches": launches, "init_s": r["init_s"],
+           "prefill_s": r["prefill_s"],
+           "decode_ms_per_token": r["decode_ms_per_token"],
+           "decode_tok_per_s": r["decode_tok_per_s"],
+           "peak_mem_gib": r["peak_mem_gib"],
+           "generated_0_16": r["generated"][0, :16].tolist(), "card": card}
+    rec.update(extra)
+    print(f"  {cfg.name} on {card}: prefill {rec['prefill_s']:.4f} s, "
+          f"decode {rec['decode_ms_per_token']:.3f} ms/token "
+          f"({rec['decode_tok_per_s']:.1f} tok/s), peak memory "
+          f"{rec['peak_mem_gib']:.3f} GiB, init {rec['init_s']:.2f} s",
+          flush=True)
+    return rec
+
+
+def phase_llm(torch, np, record, card, argv, counters, expected,
+              profile=False):
+    """A dense or pure-SSM LM through its launcher
+    (``repro_torch.launch.serve``): prefill, then a greedy decode loop,
+    with every launch counter at 0 just before and read just after
+    (exactly ``expected``); then the prefill logits against the plain
+    versions (1e-4) and the first two decode steps against the
+    teacher-forced forward on the same tokens (2e-3), and one more decode
+    step under ``set_sync_debug_mode("error")``."""
+    from repro_torch.models import transformer
+    from repro_torch.models.runtime import RuntimeOptions
+
+    args, r, launches = _serve_counted(torch, argv, counters, expected)
+    cfg, S = r["cfg"], args.prompt_len
+    logits, gen = r["prefill_logits"], r["generated"]
     max_len = S + args.new_tokens + 1
-    before = kflash.launches.value
-    plain, _ = transformer.prefill(r["params"], r["tokens"], cfg,
-                                   RuntimeOptions(impl="torch"),
-                                   max_len=max_len)
-    if kflash.launches.value != before:
-        raise AssertionError("the plain prefill launched the kernel")
+    plain = _plain_prefill(torch, r, counters, max_len,
+                           RuntimeOptions(impl="torch"))
     plain_err = float((logits - plain).abs().max())
     if not torch.allclose(logits, plain, rtol=TOL, atol=TOL):
-        raise AssertionError(f"{args.arch}: prefill logits, kernel vs "
+        raise AssertionError(f"{cfg.name}: prefill logits, kernel vs "
                              f"plain: max abs err {plain_err}")
     del plain
     full, _ = transformer.forward(
         r["params"], torch.cat([r["tokens"], gen[:, :2]], dim=1), cfg,
         r["rt"])
-    tf_err = 0.0
-    for got, at in ((logits, S - 1), (r["step_logits"][0], S),
-                    (r["step_logits"][1], S + 1)):
-        tf_err = max(tf_err, float((got - full[:, at]).abs().max()))
-        if not torch.allclose(got, full[:, at], rtol=2e-3, atol=2e-3):
-            raise AssertionError(f"{args.arch}: cached logits at position "
-                                 f"{at} vs teacher-forced forward: max abs "
-                                 f"err {tf_err}")
+    tf_err = _check_teacher_forced(torch, cfg.name,
+                                   [logits, *r["step_logits"][:2]], full, S)
     del full
     # one more step of the served cache: the decode path never stalls
     # the host on the card (a sync would serialise launch and compute)
@@ -449,28 +689,180 @@ def phase_llm(torch, np, record, card, argv, counters, profile=False):
     transformer.decode_step(r["params"], r["cache"], gen[:, -1], cfg,
                             r["rt"])
     torch.cuda.set_sync_debug_mode(0)
-    if profile:
-        rec_prof = phase_llm_profile(torch, r, max_len)
-    rec = {"arch": args.arch, "layers": cfg.num_layers,
-           "d_model": cfg.d_model, "batch": B, "prompt_len": S,
-           "new_tokens": args.new_tokens, "launches": launches,
-           "init_s": r["init_s"], "prefill_s": r["prefill_s"],
-           "decode_ms_per_token": r["decode_ms_per_token"],
-           "decode_tok_per_s": r["decode_tok_per_s"],
-           "peak_mem_gib": r["peak_mem_gib"],
-           "prefill_vs_plain_max_abs_err": plain_err,
-           "decode_vs_forward_max_abs_err": tf_err,
-           "generated_0_16": gen[0, :16].tolist(), "card": card}
-    if profile:
-        rec["profile"] = rec_prof
-    print(f"  {args.arch} on {card}: prefill {rec['prefill_s']:.4f} s, "
-          f"decode {rec['decode_ms_per_token']:.3f} ms/token "
-          f"({rec['decode_tok_per_s']:.1f} tok/s), peak memory "
-          f"{rec['peak_mem_gib']:.3f} GiB, init {rec['init_s']:.2f} s; "
-          f"prefill logits vs plain max abs err {plain_err:.3g}, cached "
+    rec = _llm_record(r, args, launches, card,
+                      prefill_vs_plain_max_abs_err=plain_err,
+                      decode_vs_forward_max_abs_err=tf_err)
+    print(f"    prefill logits vs plain max abs err {plain_err:.3g}, cached "
           f"vs teacher-forced {tf_err:.3g}", flush=True)
+    if profile:
+        rec["profile"] = phase_llm_profile(torch, r, max_len)
     record[f"llm_{args.arch}"] = rec
     del r
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _routing_flips(p_seg, cfg, cf, h_k, h_p, where):
+    """Each MoE layer's routing of the kernel run's input ``h_k[l]``
+    against the plain run's ``h_p[l]``: a relative difference of ~1e-6
+    between the two can flip a top-2 choice at a near-tie, so a flipped
+    choice fails unless the two experts' probabilities in the plain run
+    differ by less than 1e-5; each flip is reported with its layer,
+    token and gap.  Returns (the flips, the choices the capacity dropped
+    in each layer of the kernel run)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+
+    if len(h_k) != len(h_p):
+        raise AssertionError(f"{where}: captured {len(h_k)} kernel-run and "
+                             f"{len(h_p)} plain-run MoE inputs")
+    flips, dropped = [], []
+    for layer, (hk, hp) in enumerate(zip(h_k, h_p)):
+        p_l = transformer._layer(p_seg, layer)["mlp"]
+        rk = moe_mod.route(p_l, hk, cfg, cf)
+        rp = moe_mod.route(p_l, hp, cfg, cf)
+        dropped.append(int((~rk.keep).sum()))
+        ek, ep = rk.top_e.sort(-1).values, rp.top_e.sort(-1).values
+        for b, s_ in (ek != ep).any(-1).nonzero().tolist():
+            only_p = sorted(set(ep[b, s_].tolist()) - set(ek[b, s_].tolist()))
+            only_k = sorted(set(ek[b, s_].tolist()) - set(ep[b, s_].tolist()))
+            gap = max(abs(float(rp.probs[b, s_, i] - rp.probs[b, s_, j]))
+                      for i in only_p for j in only_k)
+            flips.append({"where": where, "layer": layer, "batch": b,
+                          "token": s_, "kernel": only_k, "plain": only_p,
+                          "gap": gap})
+            print(f"    routing flip ({where}): layer {layer}, batch {b}, "
+                  f"token {s_}: kernel {only_k}, plain {only_p}, plain-run "
+                  f"probability gap {gap:.3g}", flush=True)
+            if gap >= 1e-5:
+                raise AssertionError(f"{where}: routing flip at layer "
+                                     f"{layer}, token {s_} with gap {gap} "
+                                     f">= 1e-5")
+    return flips, dropped
+
+
+def phase_moe(torch, record, card, argv, counters, expected, cfg,
+              profile=False):
+    """phi3.5-moe through its launcher with the depth-cut ``cfg``, the
+    counters held to ``expected``; then, under the near-tie rule of
+    ``_routing_flips``:
+
+    * the prefill through the kernels and through the plain versions,
+      each MoE layer's input collected; with no routing flip the served
+      prefill logits are held to 1e-4 of the plain ones; with one they
+      are reported, not asserted;
+    * each MoE layer's ``moe_apply`` kernel against plain on the SAME
+      input (the kernel run's), so the routing is the same by
+      construction: max abs difference over the output's RMS (the scale
+      the next ``rms_norm`` reads it at) within 1e-4;
+    * the routed choices the capacity dropped in prefill are counted;
+    * one more decode step of the served cache (capacity factor as
+      served), through the kernels on a copy and through the plain
+      versions on the cache itself, the logits within 1e-4 under the
+      same rule;
+    * the cached decode against the teacher-forced forward (2e-3) runs
+      its own prefill of the served prompt, two decode steps and forward
+      at ``capacity_factor = E / top_k``, where the capacity is at least
+      S and nothing is dropped (at 1.25 a prefill at S and a forward at
+      S + 2 drop different choices)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+
+    args, r, launches = _serve_counted(torch, argv, counters, expected,
+                                       cfg=cfg)
+    cfg, rt, params, S = r["cfg"], r["rt"], r["params"], args.prompt_len
+    plain_rt = dataclasses.replace(rt, impl="torch")
+    max_len = S + args.new_tokens + 1
+    (si, n), = [(i, n) for i, (bt, n, _) in
+                enumerate(transformer.segments(cfg)) if bt == "attn_moe"]
+    p_seg, cf = params["segments"][si], rt.capacity_factor
+    h_k, h_p = [], []
+    transformer.prefill(params, r["tokens"], cfg, rt, max_len=max_len,
+                        moe_inputs=h_k)
+    plain = _plain_prefill(torch, r, counters, max_len, plain_rt,
+                           moe_inputs=h_p)
+    if len(h_k) != n:
+        raise AssertionError(f"captured {len(h_k)} MoE inputs, want {n}")
+    flips, dropped = _routing_flips(p_seg, cfg, cf, h_k, h_p, "prefill")
+    rel = []
+    for layer in range(n):
+        p_l = transformer._layer(p_seg, layer)["mlp"]
+        yk, _ = moe_mod.moe_apply(p_l, h_k[layer], cfg, capacity_factor=cf)
+        yp, _ = moe_mod.moe_apply(p_l, h_k[layer], cfg, capacity_factor=cf,
+                                  impl="torch")
+        rms = float(yp.square().mean().sqrt())
+        rel.append(float((yk - yp).abs().max()) / rms)
+        if rel[-1] > TOL:
+            raise AssertionError(f"moe_apply layer {layer}, kernel vs plain "
+                                 f"on the same input: max abs err / RMS "
+                                 f"{rel[-1]} > {TOL} (RMS {rms:.4g})")
+        del yk, yp
+    del h_k, h_p
+    logits = r["prefill_logits"]
+    plain_err = float((logits - plain).abs().max())
+    if not flips and not torch.allclose(logits, plain, rtol=TOL, atol=TOL):
+        raise AssertionError(f"{cfg.name}: prefill logits, kernel vs plain "
+                             f"with identical routing: max abs err "
+                             f"{plain_err}")
+    del plain
+    # the next served step, kernel (on a copy) against plain
+    cache = r["cache"]
+    copy = {"segments": [{k: v.clone() for k, v in c.items()}
+                         for c in cache["segments"]],
+            "pos": cache["pos"].clone(), "idx": cache["idx"]}
+    tok, d_k, d_p = r["generated"][:, -1], [], []
+    lk, _ = transformer.decode_step(params, copy, tok, cfg, rt,
+                                    moe_inputs=d_k)
+    lp, _ = transformer.decode_step(params, cache, tok, cfg, plain_rt,
+                                    moe_inputs=d_p)
+    d_flips, _ = _routing_flips(p_seg, cfg, cf, d_k, d_p, "decode")
+    step_err = float((lk - lp).abs().max())
+    if not d_flips and not torch.allclose(lk, lp, rtol=TOL, atol=TOL):
+        raise AssertionError(f"{cfg.name}: served decode step logits, kernel "
+                             f"vs plain with identical routing: max abs err "
+                             f"{step_err}")
+    del copy, d_k, d_p, lk, lp, r["cache"], cache
+    torch.cuda.empty_cache()
+    E, k = cfg.moe.n_routed_experts, cfg.moe.top_k
+    rt_all = dataclasses.replace(rt, capacity_factor=E / k)
+    toks, nxt = r["tokens"], r["generated"][:, :2]
+    full, _ = transformer.forward(params, torch.cat([toks, nxt], dim=1),
+                                  cfg, rt_all)
+    got, c_all = transformer.prefill(params, toks, cfg, rt_all,
+                                     max_len=S + 3)
+    cached = [got]
+    for t in range(2):
+        got, c_all = transformer.decode_step(params, c_all, nxt[:, t], cfg,
+                                             rt_all)
+        cached.append(got)
+    tf_err = _check_teacher_forced(torch, cfg.name, cached, full, S)
+    del full, c_all, cached, got
+    total = args.batch * S * k * n
+    print(f"    routing: {len(flips)} flipped choices over "
+          f"{args.batch * S * n} prefill routings, {len(d_flips)} over "
+          f"{args.batch * n} decode routings; prefill logits vs plain max "
+          f"abs err {plain_err:.3g} ({'reported' if flips else 'asserted'}); "
+          f"moe_apply same-input max err/RMS {max(rel):.3g}; capacity "
+          f"dropped {sum(dropped)} of {total} routed choices in prefill "
+          f"(per layer {dropped}); served decode step vs plain {step_err:.3g} "
+          f"({'reported' if d_flips else 'asserted'}); cached vs "
+          f"teacher-forced (capacity factor {E / k:g}, prompt {S}) "
+          f"{tf_err:.3g}", flush=True)
+    rec = _llm_record(r, args, launches, card,
+                      prefill_vs_plain_max_abs_err=plain_err,
+                      prefill_logits_asserted=not flips,
+                      routing_flips=flips + d_flips,
+                      moe_same_input_max_err_over_rms=rel,
+                      prefill_dropped_choices=dropped,
+                      prefill_routed_choices=total,
+                      decode_step_vs_plain_max_abs_err=step_err,
+                      decode_step_asserted=not d_flips,
+                      decode_vs_forward_max_abs_err=tf_err,
+                      decode_vs_forward_capacity_factor=E / k)
+    if profile:
+        rec["profile"] = phase_llm_profile(torch, r, max_len)
+    record[f"llm_{args.arch}"] = rec
+    del r, params
     torch.cuda.empty_cache()
     return rec
 
@@ -698,6 +1090,7 @@ def main() -> int:
     from repro_torch.configs.ecg_zoo import zoo_specs
 
     t_start = time.perf_counter()
+    profile = "--profile" in sys.argv
     # the plain conv runs through cuDNN: keep it (and matmuls) in fp32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -726,11 +1119,14 @@ def main() -> int:
     print("phase 2: kernels against their plain versions", flush=True)
     gather = phase_gather(torch, np, record)
     conv = phase_conv(torch, np, F, specs, record)
+    mconv = phase_mamba_conv(torch, np, F, record)
     flash = phase_flash(torch, np, F, record)
+    ssd = phase_ssd(torch, record)
+    gmm = phase_gmm(torch, record)
 
     print("phase 3: main path (full zoo)", flush=True)
     launches, conv_per_flush = phase_main(torch, np, specs, record, card,
-                                          profile="--profile" in sys.argv)
+                                          profile=profile)
     if conv_per_flush != conv[("conv1d_stripe_stacked", 64)]["calls"]:
         raise AssertionError(
             f"a flush launched {conv_per_flush} convs, the shape table "
@@ -741,16 +1137,27 @@ def main() -> int:
           "depth; smollm-360m)", flush=True)
     from repro_torch.kernels import conv1d_stripe as kconv
     from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import moe_gmm as kgmm
+    from repro_torch.kernels import ssd as kssd
     from repro_torch.kernels import window_gather as kgather
+    from repro_torch.configs.registry import get_config
     counters = (kgather.launches, kconv.launches_stacked, kconv.launches,
-                kflash.launches)
-    qwen = phase_llm(torch, np, record, card,
-                     ["--arch", "qwen3-4b", "--batch", "4", "--prompt-len",
-                      "2048", "--new-tokens", "32", "--seed", str(SEED)],
-                     counters, profile="--profile" in sys.argv)
+                kflash.launches, kssd.launches, kgmm.launches)
+    served = ["--batch", "4", "--prompt-len", "2048", "--new-tokens", "32",
+              "--seed", str(SEED)]
+
+    def per_layer_and_step(*names):
+        """Each kernel once a layer in prefill and in every decode step."""
+        return lambda cfg, a: {k: cfg.num_layers * (1 + a.new_tokens)
+                               for k in names}
+
+    dense = per_layer_and_step("flash_attention")
+    qwen = phase_llm(torch, np, record, card, ["--arch", "qwen3-4b"] + served,
+                     counters, dense, profile=profile)
     if (qwen["layers"], qwen["d_model"]) != (36, 2560):
         raise AssertionError(f"qwen3-4b served at {qwen}")
-    phase_llm(torch, np, record, card, ["--arch", "smollm-360m"], counters)
+    phase_llm(torch, np, record, card, ["--arch", "smollm-360m"], counters,
+              dense)
     fp, fd = flash["qwen3-4b prefill"], flash["qwen3-4b decode"]
     share = {"prefill": 36 * fp["ms"] / (1e3 * qwen["prefill_s"]),
              "decode": 36 * fd["ms"] / qwen["decode_ms_per_token"]}
@@ -758,6 +1165,42 @@ def main() -> int:
     print(f"  qwen3-4b attention share (36 x kernel ms at the phase-2 "
           f"shapes over the served time): prefill {share['prefill']:.3f}, "
           f"decode step {share['decode']:.3f}", flush=True)
+
+    print("phase 5: pure-SSM serving path (mamba2-2.7b, full width and "
+          "depth)", flush=True)
+    mamba = phase_llm(
+        torch, np, record, card, ["--arch", "mamba2-2.7b"] + served,
+        counters, lambda cfg, a: {"ssd": cfg.num_layers,
+                                  "conv1d_stripe": 3 * cfg.num_layers},
+        profile=profile)
+    if (mamba["layers"], mamba["d_model"], mamba["launches"]["ssd"],
+            mamba["launches"]["conv1d_stripe"]) != (64, 2560, 64, 192):
+        raise AssertionError(f"mamba2-2.7b served at {mamba}")
+    s_ms = ssd["served"]["ms"]
+    print(f"  mamba2-2.7b ssd share (64 x kernel ms at the phase-2 shape "
+          f"over the served prefill): "
+          f"{64 * s_ms / (1e3 * mamba['prefill_s']):.3f}", flush=True)
+
+    print("phase 6: MoE serving path (phi3.5-moe-42b-a6.6b, full width, "
+          "depth 10 of 32)", flush=True)
+    phi_cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                                  num_layers=10)
+    phi = phase_moe(torch, record, card,
+                    ["--arch", "phi3.5-moe-42b-a6.6b"] + served, counters,
+                    per_layer_and_step("flash_attention", "moe_gmm"),
+                    phi_cfg, profile=profile)
+    m = phi_cfg.moe
+    if (phi["layers"], phi["d_model"], m.n_routed_experts, m.top_k,
+            phi["launches"]["moe_gmm"],
+            phi["launches"]["flash_attention"]) != (10, 4096, 16, 2, 330,
+                                                    330):
+        raise AssertionError(f"phi3.5-moe served at {phi}")
+    g_ms = {k: gmm[k]["ms"] for k in ("prefill", "decode")}
+    print(f"  phi3.5-moe moe_gmm share (10 x kernel ms at the phase-2 "
+          f"shapes over the served time): prefill "
+          f"{10 * g_ms['prefill'] / (1e3 * phi['prefill_s']):.3f}, decode "
+          f"step {10 * g_ms['decode'] / phi['decode_ms_per_token']:.3f}",
+          flush=True)
 
     def conv_row(name, key, replaces):
         t = conv[key]
@@ -773,6 +1216,18 @@ def main() -> int:
                 "library_ms": t["library_ms"]}
 
     g = gather["ecg"]
+    conv_m1 = conv_row("conv1d_stripe", ("conv1d_stripe", 1),
+                       "src/repro/kernels/conv1d_stripe.py:62")
+    conv_m1["max_abs_err"] = max(conv_m1["max_abs_err"],
+                                 *(v["max_abs_err"] for v in mconv.values()))
+    conv_m1["launches_by_path"] = {
+        "ecg per-member oracle query": launches["conv1d_stripe"],
+        "mamba2-2.7b": mamba["launches"]["conv1d_stripe"]}
+    conv_m1["mamba_short_conv"] = {
+        f"[4,2048,{c}]": {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}
+        for c, v in mconv.items()}
+    sv, gp, gd = ssd["served"], gmm["prefill"], gmm["decode"]
     kernels = [
         {"name": "window_gather", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/window_gather.cu",
@@ -783,17 +1238,40 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None},
         conv_row("conv1d_stripe_stacked", ("conv1d_stripe_stacked", 64),
                  "src/repro/kernels/conv1d_stripe.py:99"),
-        conv_row("conv1d_stripe", ("conv1d_stripe", 1),
-                 "src/repro/kernels/conv1d_stripe.py:62"),
+        conv_m1,
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:98",
          "launches": qwen["launches"]["flash_attention"],
+         "launches_by_path": {
+             "qwen3-4b": qwen["launches"]["flash_attention"],
+             "phi3.5-moe (10 layers)": phi["launches"]["flash_attention"]},
          "max_abs_err": max(v["max_abs_err"] for v in flash.values()),
          "ms": fp["ms"], "plain_ms": fp["plain_ms"],
          "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
          "library_ms": fp["library_ms"],
          "shape": "qwen3-4b prefill: B=4 S=T=2048 Hq=32 Hkv=8 D=128 causal"},
+        {"name": "ssd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:74",
+         "launches": mamba["launches"]["ssd"],
+         "max_abs_err": max(v["max_abs_err"] for v in ssd.values()),
+         "ms": sv["ms"], "plain_ms": sv["plain_ms"],
+         "bound_ms": sv["bound_ms"], "bound_by": sv["bound_by"],
+         "library_ms": None,
+         "shape": "mamba2-2.7b prefill: B=4 S=2048 H=80 P=64 G=1 N=128 "
+                  "chunk 128"},
+        {"name": "moe_gmm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+         "replaces": "src/repro/kernels/moe_gmm.py:48",
+         "launches": phi["launches"]["moe_gmm"],
+         "max_abs_err": max(v["max_abs_err"] for v in gmm.values()),
+         "ms": gp["ms"], "plain_ms": gp["plain_ms"],
+         "bound_ms": gp["bound_ms"], "bound_by": gp["bound_by"],
+         "library_ms": None,
+         "shape": "phi3.5-moe prefill: [16, 1296, 4096], f=6400",
+         "decode": {k: gd[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")}},
     ]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start

@@ -46,6 +46,11 @@ SIGNATURES = {
     # scale, stream
     "flash_attention_f32": ([_P] * 6 + [_I] * 8 + [ctypes.c_float, _P],
                             _I),
+    # x, dt, A, B, C, D, h0 (or null), y, hT, batch, S, H, P, G, N,
+    # chunk, stream
+    "ssd_f32": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    # xbuf, w_gate, w_up, w_down, hbuf (scratch), y, E, C, d, f, stream
+    "moe_gmm_f32": ([_P] * 6 + [_I] * 4 + [_P], _I),
 }
 
 

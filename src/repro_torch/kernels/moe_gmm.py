@@ -1,0 +1,44 @@
+"""CUDA ``moe_gmm``: the grouped expert SwiGLU of every MoE layer,
+prefill and decode (source: ``csrc/moe_gmm.cu``; replaces
+``repro/kernels/moe_gmm.py:48``).  Computes ``ref.moe_gmm`` within the
+port's tolerance for any C and f.  One call is two launches (the gated
+``[E, C, f]`` activations, then the down projection) and counts as one
+launch of the kernel."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = _build.LaunchCount("moe_gmm")
+
+
+def moe_gmm(xbuf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> torch.Tensor:
+    """xbuf ``[E, C, d]``; w_gate, w_up ``[E, d, f]``; w_down ``[E, f,
+    d]``; all float32, contiguous, on one card.  Returns ``[E, C, d]``."""
+    dev = _build.require_cuda("moe_gmm", xbuf, w_gate, w_up, w_down)
+    for t in (xbuf, w_gate, w_up, w_down):
+        if t.dtype != torch.float32 or t.dim() != 3:
+            raise ValueError(f"moe_gmm: 3-D float32 only, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    E, C, d = xbuf.shape
+    f = w_gate.shape[2]
+    if tuple(w_gate.shape) != (E, d, f) or w_up.shape != w_gate.shape \
+            or tuple(w_down.shape) != (E, f, d):
+        raise ValueError(f"moe_gmm: xbuf {tuple(xbuf.shape)}, w_gate "
+                         f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, "
+                         f"w_down {tuple(w_down.shape)} do not match")
+    if max(E * C * f, E * d * f) >= 2 ** 31 or E > 65535 \
+            or (C + 15) // 16 > 65535:
+        raise ValueError(f"moe_gmm: E={E}, C={C}, d={d}, f={f} exceed the "
+                         "kernel's grid or 32-bit index")
+    y = torch.empty_like(xbuf)
+    hbuf = torch.empty((E, C, f), dtype=torch.float32, device=dev)
+    lib = _build.LIBRARY.get()
+    rc = lib.moe_gmm_f32(xbuf.data_ptr(), w_gate.data_ptr(),
+                         w_up.data_ptr(), w_down.data_ptr(), hbuf.data_ptr(),
+                         y.data_ptr(), E, C, d, f, _build.stream_of(xbuf))
+    _build.check(rc, "moe_gmm")
+    launches.bump()
+    return y

@@ -20,7 +20,9 @@ import torch
 
 from repro_torch.kernels import conv1d_stripe as _conv
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import window_gather as _gather
 
 IMPLS = (None, "torch", "cuda")
@@ -70,3 +72,18 @@ def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
                              window=window, scale=scale)
     return _flash.flash_attention(q, k, v, qpos, kpos, causal=causal,
                                   window=window, scale=scale)
+
+
+def ssd(x, dt, A, B_, C, D, chunk: int, h0=None, *,
+        impl: Optional[str] = None):
+    """Mamba-2 chunked SSD scan -> ``(y, hT)`` (``repro/kernels/ops.py:57``)."""
+    if resolve(impl, x) == "torch":
+        return ref.ssd_chunked(x, dt, A, B_, C, D, chunk, h0)
+    return _ssd.ssd(x, dt, A, B_, C, D, chunk, h0)
+
+
+def moe_gmm(xbuf, w_gate, w_up, w_down, *, impl: Optional[str] = None):
+    """Grouped expert SwiGLU over ``[E, C, d]`` (``repro/kernels/ops.py:66``)."""
+    if resolve(impl, xbuf) == "torch":
+        return ref.moe_gmm(xbuf, w_gate, w_up, w_down)
+    return _gmm.moe_gmm(xbuf, w_gate, w_up, w_down)

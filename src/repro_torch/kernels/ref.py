@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the ported kernels, and the attention
-oracles (``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the ported kernels (window gather, conv,
+attention, SSD scan, MoE grouped SwiGLU), and the attention and SSD
+decode oracles (``repro/kernels/ref.py``).
 
 They are the port's own reference, playing the part ``repro.kernels.ref``
 plays in the JAX package: the CPU path runs them, the tests hold them
@@ -190,3 +191,97 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, Dv).to(q.dtype)
+
+
+# ------------------------------------------------------------------ SSD
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B_: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                chunk: int, h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD chunked scan (``repro.kernels.ref.ssd_chunked``).
+
+    x ``[B, S, H, P]``; dt ``[B, S, H]`` (softplus-ed, > 0); A ``[H]``
+    (< 0); B_, C ``[B, S, G, N]`` (group ``h // (H // G)`` feeds head
+    h); D ``[H]``; h0 ``[B, H, P, N]`` or None.  A ragged S is padded
+    with ``dt = 0`` steps, which leave the state unchanged, so ``hT`` is
+    the state after step S.  Returns (y ``[B, S, H, P]``, hT ``[B, H, P,
+    N]`` float32)."""
+    b, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    S0 = S
+    if S % chunk:
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))                 # dt=0 -> no-op steps
+        B_ = F.pad(B_, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        S = S + pad
+    nc = S // chunk
+    rep = H // G
+    xc = x.reshape(b, nc, chunk, H, P)
+    dtc = dt.reshape(b, nc, chunk, H)
+    Bc = B_.repeat_interleave(rep, dim=2).reshape(b, nc, chunk, H, N)
+    Cc = C.repeat_interleave(rep, dim=2).reshape(b, nc, chunk, H, N)
+
+    seg = torch.cumsum(dtc * A, dim=2)                  # [b,nc,c,H] (<= 0)
+    total = seg[:, :, -1, :]                            # [b,nc,H]
+
+    # within-chunk term: L[i,j] = exp(seg_i - seg_j) for i >= j (the
+    # difference first: exp(seg_i) * exp(-seg_j) overflows)
+    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]    # [b,nc,c,c,H]
+    mask = torch.ones(chunk, chunk, dtype=torch.bool,
+                      device=x.device).tril()
+    L = torch.where(mask[None, None, :, :, None], torch.exp(diff),
+                    torch.zeros((), dtype=diff.dtype, device=x.device))
+    CB = torch.einsum("bqchs,bqkhs->bqckh", Cc, Bc)         # [b,nc,c,c,H]
+    W = CB * L.to(CB.dtype) * dtc[:, :, None, :, :].to(CB.dtype)
+    y_diag = torch.einsum("bqckh,bqkhp->bqchp", W, xc)
+
+    # each chunk's contribution to its end state
+    wgt = torch.exp(total[:, :, None, :] - seg) * dtc        # [b,nc,c,H]
+    states = torch.einsum("bqchs,bqchp->bqhps",
+                          Bc * wgt[..., None].to(Bc.dtype), xc).float()
+
+    # inter-chunk recurrence over the chunk states (float32 carry)
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_prev = []
+    for q in range(nc):
+        h_prev.append(h)
+        h = h * torch.exp(total[:, q].float())[:, :, None, None] \
+            + states[:, q]
+    h_prev = torch.stack(h_prev, dim=1)                     # [b,nc,H,P,N]
+
+    # output from the carried state
+    y_off = torch.einsum("bqchs,bqch,bqhps->bqchp", Cc.float(),
+                         torch.exp(seg).float(), h_prev)
+    y = (y_diag.float() + y_off).to(x.dtype).reshape(b, S, H, P) \
+        + x * D[None, None, :, None].to(x.dtype)
+    return y[:, :S0], h
+
+
+def ssd_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    A: torch.Tensor, B_: torch.Tensor, C: torch.Tensor,
+                    D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent SSD step (``repro.kernels.ref.ssd_decode_step``).
+    h ``[B, H, P, N]``; x ``[B, H, P]``; dt ``[B, H]``; B_, C ``[B, G,
+    N]``.  Returns (y ``[B, H, P]``, h_new)."""
+    H, G = x.shape[1], B_.shape[1]
+    rep = H // G
+    Bh = B_.repeat_interleave(rep, dim=1)
+    Ch = C.repeat_interleave(rep, dim=1)
+    dA = torch.exp(dt * A[None, :])[:, :, None, None]
+    h_new = h * dA + torch.einsum("bh,bhn,bhp->bhpn", dt, Bh, x)
+    y = torch.einsum("bhn,bhpn->bhp", Ch, h_new) + x * D[None, :, None]
+    return y, h_new
+
+
+# ------------------------------------------------------------- MoE GMM
+def moe_gmm(xbuf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> torch.Tensor:
+    """Grouped expert SwiGLU (``repro.kernels.ref.moe_gmm``).  xbuf
+    ``[E, C, d]`` (capacity-dispatched tokens); w_gate, w_up ``[E, d,
+    f]``; w_down ``[E, f, d]``.  Returns ``[E, C, d]``."""
+    gate = torch.einsum("ecd,edf->ecf", xbuf, w_gate)
+    up = torch.einsum("ecd,edf->ecf", xbuf, w_up)
+    return torch.einsum("ecf,efd->ecd", F.silu(gate) * up, w_down)

@@ -1,17 +1,18 @@
-"""Serving launcher: batched prefill + greedy decode loop for a dense or
-VLM ``--arch`` (``repro/launch/serve.py:18``).
+"""Serving launcher: batched prefill + greedy decode loop for a dense,
+VLM, MoE or pure-SSM ``--arch`` (``repro/launch/serve.py:18``).
 
     python -m repro_torch.launch.serve --arch qwen3-4b        # on the card
+    python -m repro_torch.launch.serve --arch mamba2-2.7b --prompt-len 2048
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch qwen3-4b-reduced --device cpu                  # plain, CPU
+        --arch mamba2-2.7b-reduced --device cpu               # plain, CPU
 
 Random weights and prompt come from a seeded ``torch.Generator`` drawn on
-the target device.  Every attention goes through ``kernels.ops``: the
-CUDA ``flash_attention`` kernel on the card, the plain version on the
-CPU.  Prints the first generated tokens and one JSON line with the
-reference's keys (``prefill_s``, ``decode_tok_per_s``,
-``decode_ms_per_token``); the card is synchronised before every clock
-read.  The kernels are built before the clock starts; ``prefill_s`` is
+the target device.  Every kernel call goes through ``kernels.ops``: the
+CUDA kernels on the card (``flash_attention``, ``moe_gmm``, ``ssd``,
+``conv1d_stripe``), the plain versions on the CPU.  Prints the first
+generated tokens and one JSON line with the reference's keys
+(``prefill_s``, ``decode_tok_per_s``, ``decode_ms_per_token``); the
+card is synchronised before every clock read.  The kernels are built before the clock starts; ``prefill_s`` is
 the first prefill of the process, as in the reference (whose clock
 includes the jit compile).
 """
@@ -21,9 +22,11 @@ import argparse
 import json
 import sys
 import time
+from typing import Optional
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
@@ -48,18 +51,20 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run(args: argparse.Namespace) -> dict:
+def run(args: argparse.Namespace,
+        cfg: Optional[ArchConfig] = None) -> dict:
     """Build the model and serve one batch: prefill, then
-    ``args.new_tokens`` greedy decode steps.  Returns the timings, the
-    generated tokens ``[B, new_tokens + 1]``, the prefill logits and the
-    first two decode steps' logits, the peak device memory of serving
-    (weights included), and what was served (config, params, prompt) so
-    a caller can check it."""
+    ``args.new_tokens`` greedy decode steps.  ``cfg`` replaces
+    ``get_config(args.arch)`` (a caller serving a depth-cut config).
+    Returns the timings, the generated tokens ``[B, new_tokens + 1]``,
+    the prefill logits and the first two decode steps' logits, the peak
+    device memory of serving (weights included), and what was served
+    (config, params, prompt) so a caller can check it."""
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32
         _build.LIBRARY.get()        # build the kernels before any clock
-    cfg = get_config(args.arch)
+    cfg = cfg or get_config(args.arch)
     rt = RuntimeOptions()
     model = get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

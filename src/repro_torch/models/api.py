@@ -7,8 +7,9 @@
     logits, cache = model.decode_step(params, cache, token, cfg, rt)
     cache = model.init_cache(cfg, rt, batch, seq_len, device)
 
-The port assembles the dense and VLM families; the others are later
-slices (ROADMAP §1 item 13) and raise ``NotImplementedError``.
+The port assembles the dense, VLM, MoE and pure-SSM families; hybrid
+and enc-dec are a later slice (ROADMAP §1 item 13) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,15 +38,13 @@ _TRANSFORMER = ModelApi(
 )
 
 _LATER = {
-    "ssm": "13.1 (SSM: models/ssm.py, kernel ssd)",
-    "moe": "13.2 (MoE: models/moe.py, kernel moe_gmm; 13.4 for MLA)",
     "hybrid": "13.5 (hybrid: models/hybrid.py)",
     "encdec": "13.5 (enc-dec: models/encdec.py)",
 }
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "moe", "ssm"):
         return _TRANSFORMER
     if cfg.family in _LATER:
         raise NotImplementedError(

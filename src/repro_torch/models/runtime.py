@@ -25,7 +25,10 @@ class RuntimeOptions:
                         versions), ``"cuda"`` (the kernels).
     window:             attention-window override; 0 keeps
                         ``cfg.sliding_window``.
-    capacity_factor:    MoE dispatch capacity factor (no MoE block yet).
+    capacity_factor:    MoE dispatch capacity factor: an expert takes
+                        ``_capacity(S, top_k, E, capacity_factor)``
+                        tokens of each sequence (``models/moe.py``);
+                        the choices past it are dropped.
     dtype:              parameter and activation type.
     attn_chunk:         online softmax over KV chunks in the plain
                         version; 0 materialises the [S, T] scores.  The

@@ -1,5 +1,5 @@
-"""Decoder language model assembly, dense and VLM families
-(``repro/models/transformer.py``).
+"""Decoder language model assembly: dense, VLM, MoE and pure-SSM
+families (``repro/models/transformer.py``).
 
 Layers are grouped into homogeneous SEGMENTS with per-segment stacked
 ``[L, ...]`` params, as in the reference; a Python loop over the layer
@@ -9,13 +9,16 @@ index takes the place of ``lax.scan``.  Three modes:
   prefill(...)      full sequence, returns (last-token logits, decode cache)
   decode_step(...)  one token against the cache (ring buffer if windowed)
 
-Cache: {"segments": [per-segment stacked {"k", "v"}], "pos": [M] int32,
-"idx": int}.  ``decode_step`` advances the cache IN PLACE (the new key,
-value and position go into the tensors it was given) and returns it with
-``idx + 1``: a cache is never reused after it has been stepped.
+Cache: {"segments": [per-segment stacked {"k", "v"} or mamba state
+{"conv_x", "conv_B", "conv_C", "ssm"}], "pos": [M] int32 ([1] of -1 when
+no segment holds K/V), "idx": int}.  ``decode_step`` advances the cache
+IN PLACE (the new key, value, position and mamba state go into the
+tensors it was given) and returns it with ``idx + 1``: a cache is never
+reused after it has been stepped.
 
-The ``mamba`` and ``attn_moe`` blocks and MLA attention are later slices
-of the port (ROADMAP §1 item 13) and raise ``NotImplementedError``.
+``forward`` returns the MoE load-balance loss summed over the MoE
+layers as its aux term.  MLA attention is a later slice of the port
+(ROADMAP §1 item 13) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,23 +29,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed, init_embedding, init_linear,
                                        init_rmsnorm, init_swiglu, linear,
                                        rms_norm, swiglu, unembed)
 from repro_torch.models.runtime import RuntimeOptions
-
-_LATER = {
-    "mamba": "the SSM slice (ROADMAP §1 item 13.1: models/ssm.py, "
-             "kernel ssd)",
-    "attn_moe": "the MoE slice (ROADMAP §1 item 13.2: models/moe.py, "
-                "kernel moe_gmm)",
-    "mla": "the MLA slice (ROADMAP §1 item 13.4)",
-}
-
-
-def _not_yet(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes with "
-                               f"{_LATER[what]}")
 
 
 # ----------------------------------------------------------- segments
@@ -65,10 +57,9 @@ def segments(cfg: ArchConfig) -> List[Tuple[str, int, int]]:
 
 
 def _check_block(cfg: ArchConfig, btype: str) -> None:
-    if btype != "attn_dense":
-        raise _not_yet(btype)
-    if cfg.attn_type == "mla":
-        raise _not_yet("mla")
+    if btype != "mamba" and cfg.attn_type == "mla":
+        raise NotImplementedError("mla is not ported yet; it comes with the "
+                                  "MLA slice (ROADMAP §1 item 13)")
 
 
 # ----------------------------------------------------------- block
@@ -77,20 +68,37 @@ def _init_block(gen, cfg: ArchConfig, rt: RuntimeOptions, btype: str,
     """One segment's params, stacked over its ``n`` layers."""
     _check_block(cfg, btype)
     lead = (n,)
-    return {"ln1": init_rmsnorm(cfg.d_model, rt.dtype, device, lead),
-            "attn": attn.init_gqa(gen, cfg, rt.dtype, device, rt.kv_mult,
-                                  lead),
-            "ln2": init_rmsnorm(cfg.d_model, rt.dtype, device, lead),
-            "mlp": init_swiglu(gen, cfg.d_model, d_ff, rt.dtype, device,
-                               cfg.attn_bias, lead)}
+    if btype == "mamba":
+        return {"ln1": init_rmsnorm(cfg.d_model, rt.dtype, device, lead),
+                "mixer": ssm_mod.init_mamba2(gen, cfg, rt.dtype, device,
+                                             lead)}
+    p = {"ln1": init_rmsnorm(cfg.d_model, rt.dtype, device, lead),
+         "attn": attn.init_gqa(gen, cfg, rt.dtype, device, rt.kv_mult,
+                               lead),
+         "ln2": init_rmsnorm(cfg.d_model, rt.dtype, device, lead)}
+    if btype == "attn_dense":
+        p["mlp"] = init_swiglu(gen, cfg.d_model, d_ff, rt.dtype, device,
+                               cfg.attn_bias, lead)
+    else:
+        p["mlp"] = moe_mod.init_moe(gen, cfg, rt.dtype, device, lead)
+    return p
 
 
 def _apply_block(p, x, btype: str, cfg: ArchConfig, rt: RuntimeOptions,
-                 positions, mode: str, cache_l, cache_pos, cache_idx):
-    """Returns (x, new_cache_l)."""
+                 positions, mode: str, cache_l, cache_pos, cache_idx,
+                 moe_inputs: Optional[list] = None):
+    """Returns (x, new_cache_l, aux); aux is the MoE load-balance loss,
+    None for the other blocks (no tensor, so no launch, per layer).  A
+    MoE block appends its input to ``moe_inputs`` when one is given."""
     _check_block(cfg, btype)
     dec = mode == "decode"
+    aux = None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if btype == "mamba":
+        y, new_c = ssm_mod.mamba2_apply(
+            p["mixer"], h, cfg, cache=cache_l if dec else None,
+            return_cache=(mode == "prefill"), impl=rt.impl)
+        return x + y, new_c, aux
     y, new_c = attn.gqa_apply(
         p["attn"], h, positions, cfg,
         cache=cache_l if dec else None,
@@ -100,7 +108,15 @@ def _apply_block(p, x, btype: str, cfg: ArchConfig, rt: RuntimeOptions,
         impl=rt.impl, chunk=rt.attn_chunk)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p["mlp"], h), new_c
+    if btype == "attn_dense":
+        y = swiglu(p["mlp"], h)
+    else:
+        if moe_inputs is not None:
+            moe_inputs.append(h)
+        y, aux = moe_mod.moe_apply(p["mlp"], h, cfg,
+                                   capacity_factor=rt.capacity_factor,
+                                   impl=rt.impl)
+    return x + y, new_c, aux
 
 
 # ----------------------------------------------------------- LM init
@@ -130,6 +146,8 @@ def _layer_cache_shape(cfg: ArchConfig, rt: RuntimeOptions, btype: str,
                        batch: int, M: int, device, n: int = 1):
     """One segment's empty cache, stacked over its ``n`` layers."""
     _check_block(cfg, btype)
+    if btype == "mamba":
+        return ssm_mod.ssm_cache_init(cfg, batch, rt.dtype, device, (n,))
     nkv = cfg.n_kv_heads * rt.kv_mult
     shape = (n, batch, M, nkv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=rt.dtype, device=device),
@@ -168,10 +186,13 @@ def _stack(trees):
 
 
 def _run_segments(params, x, cfg, rt, positions, mode, cache, cache_pos,
-                  cache_idx):
-    """Returns (x, per-segment caches): the stacked fresh ``{"k", "v"}``
-    of every layer in prefill, the (updated in place) cache in decode,
-    None in train mode."""
+                  cache_idx, moe_inputs=None):
+    """Returns (x, aux summed over the MoE layers or None without any,
+    per-segment caches): the stacked fresh cache of every layer in
+    prefill, the (updated in place) cache in decode, None in train
+    mode.  ``moe_inputs``, when given, collects each MoE layer's input
+    (``_apply_block``)."""
+    aux_total = None
     new_seg_caches = []
     for si, (btype, n, _) in enumerate(segments(cfg)):
         p_seg = params["segments"][si]
@@ -179,13 +200,15 @@ def _run_segments(params, x, cfg, rt, positions, mode, cache, cache_pos,
         ys = []
         for i in range(n):
             c_l = _layer(c_seg, i) if c_seg is not None else None
-            x, new_c = _apply_block(_layer(p_seg, i), x, btype, cfg, rt,
-                                    positions, mode, c_l, cache_pos,
-                                    cache_idx)
+            x, new_c, aux = _apply_block(_layer(p_seg, i), x, btype, cfg,
+                                         rt, positions, mode, c_l,
+                                         cache_pos, cache_idx, moe_inputs)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
             if mode == "prefill":
                 ys.append(new_c)
         new_seg_caches.append(_stack(ys) if mode == "prefill" else c_seg)
-    return x, new_seg_caches
+    return x, aux_total, new_seg_caches
 
 
 def _embed_inputs(params, cfg, rt, tokens, prefix_embeds):
@@ -200,13 +223,16 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
             rt: RuntimeOptions, prefix_embeds: Optional[torch.Tensor] = None):
     """Teacher-forced full-sequence logits.  tokens: ``[B, S_text]``;
     prefix_embeds: ``[B, P, frontend_dim]`` (VLM stub).  Returns
-    (logits ``[B, S_total, V_padded]``, aux); aux is 0 (no MoE block)."""
+    (logits ``[B, S_total, V_padded]``, aux); aux is the MoE
+    load-balance loss summed over the layers (0 without MoE blocks)."""
     x = _embed_inputs(params, cfg, rt, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, _ = _run_segments(params, x, cfg, rt, positions, "train", None, None,
-                         None)
+    x, aux, _ = _run_segments(params, x, cfg, rt, positions, "train", None,
+                              None, None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x), torch.zeros((), device=x.device)
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
+    return unembed(params["embed"], x), aux
 
 
 def fit_kv_cache(kv, S: int, M: int, axis: int = 2):
@@ -238,33 +264,48 @@ def fit_kv_cache(kv, S: int, M: int, axis: int = 2):
 
 def prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
             rt: RuntimeOptions, prefix_embeds: Optional[torch.Tensor] = None,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None,
+            moe_inputs: Optional[list] = None):
     """Returns (last-token logits ``[B, V_padded]``, decode cache).
     ``max_len`` sizes the cache for the decoding to come (defaults to
-    S + 128)."""
+    S + 128); ``moe_inputs``, when given, collects each MoE layer's
+    input, in layer order (for checks of the routing)."""
     x = _embed_inputs(params, cfg, rt, tokens, prefix_embeds)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    x, seg_caches = _run_segments(params, x, cfg, rt, positions, "prefill",
-                                  None, None, None)
+    x, _, seg_caches = _run_segments(params, x, cfg, rt, positions,
+                                     "prefill", None, None, None, moe_inputs)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x)[:, 0]
     M = cache_len(cfg, rt, max_len or S + 128)
-    fitted = [fit_kv_cache(c, S, M) for c in seg_caches]
-    return logits, {"segments": [c for c, _ in fitted],
-                    "pos": fitted[0][1], "idx": S}
+    trimmed, pos = [], None
+    for (btype, _, _), c in zip(segments(cfg), seg_caches):
+        if btype == "mamba":                 # the state as it is
+            trimmed.append(c)
+        else:
+            c, pos = fit_kv_cache(c, S, M)
+            trimmed.append(c)
+    if pos is None:                          # pure SSM: no K/V ring
+        pos = torch.full((1,), -1, dtype=torch.int32, device=x.device)
+    return logits, {"segments": trimmed, "pos": pos, "idx": S}
 
 
 def decode_step(params, cache, token: torch.Tensor, cfg: ArchConfig,
-                rt: RuntimeOptions):
+                rt: RuntimeOptions, moe_inputs: Optional[list] = None):
     """token: ``[B]`` int.  Returns (logits ``[B, V_padded]``, the cache
-    advanced in place, with ``idx + 1``)."""
+    advanced in place, with ``idx + 1``); ``moe_inputs`` as in
+    ``prefill``."""
     x = embed(params["embed"], token.long()[:, None]).to(rt.dtype)
     idx = cache["idx"]
     positions = torch.full((1,), idx, dtype=torch.int32, device=x.device)
-    x, seg_caches = _run_segments(params, x, cfg, rt, positions, "decode",
-                                  cache, cache["pos"], idx)
+    x, _, seg_caches = _run_segments(params, x, cfg, rt, positions,
+                                     "decode", cache, cache["pos"], idx,
+                                     moe_inputs)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x)[:, 0]
-    return logits, {"segments": seg_caches, "pos": cache["pos"],
-                    "idx": idx + 1}
+    pos = cache["pos"]
+    if all(btype == "mamba" for btype, _, _ in segments(cfg)):
+        # no attention layer wrote it; a fill, since an indexed store of
+        # a Python number would stall the host on the card
+        pos.narrow(0, idx % pos.shape[0], 1).fill_(idx)
+    return logits, {"segments": seg_caches, "pos": pos, "idx": idx + 1}

@@ -11,8 +11,22 @@ while still catching any wrong tap, pad or group (those move values by
 O(1)).  No test loosens it.
 
 Ops that only move data (the ring ingest, ``window_gather``, the
-lead-gather, refs against packed flushes) must be bitwise equal:
-``assert_bitwise``.
+lead-gather, refs against packed flushes, the MoE dispatch buffer) must
+be bitwise equal: ``assert_bitwise``.
+
+One place reads the same 1e-4 at another scale: a served MoE layer on
+the card (``chip_smoke.py`` phase 6).  The reference's init scales an
+``[E, d, f]`` expert leaf by its first axis, E = 16, not by d, so the
+experts' outputs there are ~1e3 in size, and an elementwise 1e-4 would
+test the order in which 6400-term fp32 sums are taken, not the kernel.
+There each MoE layer's output, kernel against plain on the same input,
+is held to ``max |y_kernel - y_plain| / RMS(y_plain) <= 1e-4``: the
+scale at which the next ``rms_norm`` reads it.  And since a relative
+difference of ~1e-6 can flip a top-k choice at a near-tie, routing is
+compared choice by choice; a flip is accepted only where the two
+experts' probabilities differ by less than 1e-5, and then the logits
+are reported instead of asserted.  The CPU tests, at reduced width,
+keep the elementwise rule.
 """
 from __future__ import annotations
 

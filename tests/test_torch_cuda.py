@@ -7,9 +7,13 @@ on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The conv cases are the ones ``tests/test_torch_kernels.py`` holds the
-plain versions to against the JAX package; the attention cases cover
-causal and windowed prefill, ragged ``S``/``T``, empty cache slots, the
-rolled ring of a windowed decode, and ``g`` in {1, 3, 4, 16}.
+plain versions to against the JAX package, and the mamba short conv
+(depthwise, K = 4, CAUSAL); the attention cases cover causal and
+windowed prefill, ragged ``S``/``T``, empty cache slots, the rolled
+ring of a windowed decode, and ``g`` in {1, 3, 4, 16}; the ``ssd``
+cases ragged S, an initial state, G in {1, 2} and the served tile
+(chunk 128, P = 64, N = 128); the ``moe_gmm`` cases C and f off the
+tiles, at most 16 rows an expert (the decode tile) and more.
 """
 import numpy as np
 import pytest
@@ -17,7 +21,9 @@ import torch
 
 from repro_torch.kernels import conv1d_stripe as kconv
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import moe_gmm as kgmm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd as kssd
 from repro_torch.configs.registry import get_config
 from repro_torch.models import transformer
 from repro_torch.models.runtime import RuntimeOptions
@@ -35,6 +41,8 @@ CONV_CASES = [
     (2, 30, 4, 4, 4, 4, 1, "CAUSAL"),
     (2, 30, 8, 8, 7, 8, 2, "CAUSAL"),
     (1, 5, 4, 6, 7, 2, 1, "SAME"),
+    (2, 300, 640, 640, 4, 640, 1, "CAUSAL"),  # mamba short conv, depthwise
+    (2, 129, 128, 128, 4, 128, 1, "CAUSAL"),
     (4, 7500, 1, 128, 7, 1, 2, "SAME"),      # full-width stem
     (4, 3750, 64, 64, 7, 8, 2, "SAME"),      # full-width stripe
 ]
@@ -227,5 +235,135 @@ def test_cuda_lm_matches_plain_and_decode_never_syncs(cuda_device, arch,
                                                 toks[:, 38 + t], cfg, rt)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_allclose(lg.cpu().numpy(), full[:, 39].cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+
+
+# (B, S, H, P, G, N, chunk, with h0)
+SSD_CASES = [
+    (1, 48, 4, 8, 1, 16, 16, False),
+    (2, 45, 4, 16, 2, 16, 16, True),        # ragged S, G = 2, h0
+    (1, 37, 3, 8, 1, 16, 32, True),         # chunk > S
+    (2, 300, 4, 64, 1, 128, 128, True),     # the served tile, ragged S
+    (1, 256, 6, 64, 2, 128, 128, False),
+]
+
+
+def ssd_inputs(case, device, seed=0):
+    B, S, H, P, G, N, _, with_h0 = case
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    arrs = [rng.standard_normal((B, S, H, P)).astype(f32),
+            np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(f32),
+            (-np.exp(rng.standard_normal(H))).astype(f32),
+            rng.standard_normal((B, S, G, N)).astype(f32),
+            rng.standard_normal((B, S, G, N)).astype(f32),
+            rng.standard_normal(H).astype(f32)]
+    arrs.append(rng.standard_normal((B, H, P, N)).astype(f32)
+                if with_h0 else None)
+    return [None if a is None else torch.from_numpy(a).to(device)
+            for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_cuda_ssd_matches_plain(cuda_device, case):
+    x, dt, A, Bm, Cm, D, h0 = ssd_inputs(case, cuda_device)
+    before = kssd.launches.value
+    y, hT = kssd.ssd(x, dt, A, Bm, Cm, D, case[6], h0)
+    torch.cuda.synchronize()
+    assert kssd.launches.value == before + 1
+    yr, hr = ref.ssd_chunked(x, dt, A, Bm, Cm, D, case[6], h0)
+    assert_close(y, yr, "y")
+    assert_close(hT, hr, "hT")
+    y2, h2 = kssd.ssd(x, dt, A, Bm, Cm, D, case[6], h0)
+    assert torch.equal(y, y2) and torch.equal(hT, h2)     # deterministic
+
+
+# (E, C, d, f)
+GMM_CASES = [(4, 64, 32, 48), (3, 37, 24, 50), (2, 5, 16, 33),
+             (16, 16, 256, 200), (4, 130, 128, 320), (1, 1, 8, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_cuda_moe_gmm_matches_plain(cuda_device, case):
+    E, C, d, f = case
+    rng = np.random.default_rng(0)
+    x, wg, wu, wd = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                     for a in (rng.standard_normal((E, C, d)),
+                               rng.standard_normal((E, d, f)) / d ** 0.5,
+                               rng.standard_normal((E, d, f)) / d ** 0.5,
+                               rng.standard_normal((E, f, d)) / f ** 0.5))
+    before = kgmm.launches.value
+    got = kgmm.moe_gmm(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert kgmm.launches.value == before + 1
+    assert_close(got, ref.moe_gmm(x, wg, wu, wd))
+    assert torch.equal(got, kgmm.moe_gmm(x, wg, wu, wd))
+    with pytest.raises(ValueError, match="match"):
+        kgmm.moe_gmm(x, wg, wu, wd[:, :, :-1].contiguous())
+
+
+@pytest.mark.cuda
+def test_cuda_ops_ssd_and_moe_gmm_launch_the_kernels_only(cuda_device,
+                                                          monkeypatch):
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(ref, "ssd_chunked", plain)
+    monkeypatch.setattr(ref, "moe_gmm", plain)
+    x, dt, A, Bm, Cm, D, h0 = ssd_inputs(SSD_CASES[1], cuda_device)
+    before = kssd.launches.value
+    ops.ssd(x, dt, A, Bm, Cm, D, 16, h0)
+    assert kssd.launches.value == before + 1
+    w = torch.zeros(2, 8, 4, device=cuda_device)
+    before = kgmm.launches.value
+    ops.moe_gmm(torch.zeros(2, 3, 8, device=cuda_device), w, w,
+                torch.zeros(2, 4, 8, device=cuda_device))
+    assert kgmm.launches.value == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b-reduced",
+                                  "phi3.5-moe-42b-a6.6b-reduced"])
+def test_cuda_ssm_and_moe_lm_match_plain(cuda_device, arch):
+    """The mamba and MoE LMs on the card: prefill logits within the
+    tolerance of the plain versions, through the expected kernels; the
+    cached decode against the teacher-forced forward (2e-3) at a
+    capacity that drops nothing; a mamba decode step launches no kernel
+    and issues no host sync."""
+    cfg = get_config(arch)
+    cf = cfg.moe.n_routed_experts / cfg.moe.top_k if cfg.moe else 1.25
+    rt = RuntimeOptions(capacity_factor=cf)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = transformer.init_lm(gen, cfg, rt, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device=cuda_device)
+    counters = (kssd.launches, kgmm.launches, kflash.launches,
+                kconv.launches)
+    before = [c.value for c in counters]
+    lg, cache = transformer.prefill(params, toks[:, :38], cfg, rt,
+                                    max_len=41)
+    got = [c.value - b for c, b in zip(counters, before)]
+    L = cfg.num_layers
+    assert got == ([L, 0, 0, 3 * L] if cfg.ssm else [0, L, L, 0]), got
+    plain, _ = transformer.prefill(
+        params, toks[:, :38], cfg,
+        RuntimeOptions(capacity_factor=cf, impl="torch"), max_len=41)
+    assert_close(lg, plain)
+    full, _ = transformer.forward(params, toks, cfg, rt)
+    before = [c.value for c in counters]
+    if cfg.ssm:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(2):
+            lg, cache = transformer.decode_step(params, cache,
+                                                toks[:, 38 + t], cfg, rt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if cfg.ssm:
+        assert [c.value for c in counters] == before   # decode: no kernel
     np.testing.assert_allclose(lg.cpu().numpy(), full[:, 39].cpu().numpy(),
                                rtol=2e-3, atol=2e-3)

@@ -2,9 +2,9 @@
 
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   anything of the JAX package (``repro``);
-* the kernel modules, the LM path's modules and ``chip_smoke.py`` hold
-  no ``try``: nothing catches a kernel build or launch to fall back to
-  the plain version;
+* the kernel modules, the LM paths' modules (dense, MoE, SSM) and
+  ``chip_smoke.py`` hold no ``try``: nothing catches a kernel build or
+  launch to fall back to the plain version;
 * an entry point built without ``device=`` runs on the card, so it
   raises when CUDA is absent;
 * a CPU tensor handed to a kernel wrapper raises instead of running the
@@ -23,7 +23,9 @@ from repro_torch.device import resolve_device
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import conv1d_stripe as kconv
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import moe_gmm as kgmm
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd as kssd
 from repro_torch.kernels import window_gather as kgather
 from repro_torch.launch import serve
 from repro_torch.models import transformer
@@ -35,13 +37,17 @@ from repro_torch.serving import pipeline as tp
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-# the dense-LM serving path, from the launcher down to the kernel wrapper
+# the LM serving paths (dense, MoE, pure SSM), from the launcher down to
+# the kernel wrappers
 LM_PATH = [PORT / f for f in (
     "launch/serve.py", "models/api.py", "models/transformer.py",
     "models/attention.py", "models/layers.py", "models/runtime.py",
-    "models/convert.py", "configs/base.py", "configs/registry.py",
-    "configs/qwen3_4b.py", "configs/smollm_360m.py", "kernels/ops.py",
-    "kernels/ref.py", "kernels/flash_attention.py")]
+    "models/convert.py", "models/ssm.py", "models/moe.py",
+    "configs/base.py", "configs/registry.py", "configs/qwen3_4b.py",
+    "configs/smollm_360m.py", "configs/mamba2_2p7b.py",
+    "configs/phi35_moe_42b.py", "kernels/ops.py", "kernels/ref.py",
+    "kernels/flash_attention.py", "kernels/ssd.py", "kernels/moe_gmm.py",
+    "kernels/conv1d_stripe.py")]
 
 
 def _imports(path):
@@ -97,8 +103,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
     cfg = get_config("qwen3-4b-reduced")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--arch", "qwen3-4b-reduced", "--new-tokens", "1"])
+    for arch in ("qwen3-4b-reduced", "mamba2-2.7b-reduced",
+                 "phi3.5-moe-42b-a6.6b-reduced"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", arch, "--new-tokens", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         transformer.init_lm(torch.Generator(), cfg, RuntimeOptions())
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -132,6 +140,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                q[:, :, :1].contiguous(), pos, pos)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.attention(q, q, q, pos, pos, impl="cuda")
+    xs, dt, h = torch.zeros(1, 4, 2, 8), torch.ones(1, 4, 2), torch.ones(2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kssd.ssd(xs, dt, -h, xs[:, :, :1].contiguous(),
+                 xs[:, :, :1].contiguous(), h, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.ssd(xs, dt, -h, xs[:, :, :1], xs[:, :, :1], h, 4, impl="cuda")
+    xb, wg = torch.zeros(2, 3, 4), torch.zeros(2, 4, 5)
+    wd = torch.zeros(2, 5, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kgmm.moe_gmm(xb, wg, wg, wd)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.moe_gmm(xb, wg, wg, wd, impl="cuda")
 
 
 def test_cpu_service_with_cuda_impl_raises_not_falls_back():
