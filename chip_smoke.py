@@ -10,11 +10,11 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
 1. environment: versions, the card's name and power limit, the build of
    every CUDA kernel from ``src/repro_torch/kernels/csrc``;
 2. each kernel against its plain PyTorch version at the paths' shapes
-   (``window_gather`` bitwise; both conv entry points and
-   ``flash_attention`` within rtol = atol = 1e-4 with TF32 off), with
-   its time, the plain version's time, the time of one library call
-   where one computes the same function, and the least time the card
-   could take (bound);
+   (``window_gather`` bitwise; both conv entry points,
+   ``flash_attention``, ``decode_attention``, ``ssd`` and ``moe_gmm``
+   within rtol = atol = 1e-4 with TF32 off), with its time, the plain
+   version's time, the time of one library call where one computes the
+   same function, and the least time the card could take (bound);
 3. the ECG main path at full width: the 60-member full zoo (30-s
    windows) behind ``StreamingPipeline(device_ingest=True)`` and an
    ``EnsembleServer`` over ``DeviceWindowRef``s, with the launch
@@ -22,31 +22,43 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    latency at P=8 and P=64 and checks against the plain versions;
 4. the dense-LM serving path through ``repro_torch.launch.serve``:
    qwen3-4b at full width and depth (36 layers; batch 4, prompt 2048,
-   32 new tokens), counters reset just before and read just after
-   (36 x 33 ``flash_attention`` launches), prefill logits against the
-   plain versions and cached decode against the teacher-forced forward;
-   then smollm-360m at the launcher's defaults;
+   32 new tokens), counters reset just before and read just after (36
+   ``flash_attention`` and 36 x 32 ``decode_attention`` launches),
+   prefill logits against the plain versions and cached decode against
+   the teacher-forced forward; then smollm-360m at the launcher's
+   defaults;
 5. the pure-SSM path: mamba2-2.7b at full width and depth (64 layers;
    the same traffic), exactly 64 ``ssd`` and 192 ``conv1d_stripe``
    launches (decode launches no kernel, as in the reference), the same
    checks as phase 4;
 6. the MoE path: phi3.5-moe-42b-a6.6b at full width, depth cut to 10
    of its 32 layers (fp32 weights of all 32 are 166 GB), the same
-   traffic at capacity factor 1.25, exactly 330 ``flash_attention`` and
-   330 ``moe_gmm`` launches; routing compared kernel against plain
-   (near-tie flips reported), each MoE layer held kernel against plain
-   on the same input, dropped choices counted, one more served decode
-   step held kernel against plain, and the cached decode against the
-   teacher-forced forward at a capacity that drops nothing;
-7. a ``kernels`` JSON line (the six ported kernels), and the last line
+   traffic at capacity factor 1.25, exactly 10 ``flash_attention``, 320
+   ``decode_attention`` and 330 ``moe_gmm`` launches; routing compared
+   kernel against plain (near-tie flips reported), each MoE layer held
+   kernel against plain on the same input, dropped choices counted, one
+   more served decode step held kernel against plain, and the cached
+   decode against the teacher-forced forward at a capacity that drops
+   nothing;
+7. the MLA path: deepseek-v2-lite-16b at full width and depth (27
+   layers, 58.5 GiB of fp32 weights), the same traffic, materialized
+   (the launcher's default): exactly 27 ``flash_attention``, 864
+   ``decode_attention`` and 858 ``moe_gmm`` launches and phase 6's
+   checks; then the absorbed form from the same post-prefill cache: 864
+   more ``decode_attention`` launches, its logits against the
+   materialized ones (2e-3), one absorbed step against plain (1e-4),
+   both forms against the teacher-forced forward on a 512-token prompt,
+   and both decode times;
+8. a ``kernels`` JSON line (the seven ported kernels), and the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``ssd`` (y and hT) and ``moe_gmm`` against their
 plain versions at the served shapes and at ragged ones, and the 3-D
 conv at the mamba short-conv shapes.  ``--profile`` adds one traced
 flush at P=8 and at P=64 after phase 3 and one traced prefill and
-decode step of qwen3-4b, mamba2-2.7b and phi3.5-moe
-(``torch.profiler``): device time by kernel and the card's idle share.
+decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe and deepseek-v2-lite
+(and one absorbed step) (``torch.profiler``): device time by kernel and
+the card's idle share.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Details (per-shape timings, the nvcc log) go to
@@ -254,49 +266,90 @@ def phase_gather(torch, np, record):
     return out
 
 
-def _attn_cases(np):
-    """The LM path's attention calls at full width, as
-    ``(label, B, Hq, Hkv, D, window, qpos, kpos)``: qwen3-4b's prefill
-    (B=4, 2048 tokens, causal) and a decode step mid-generation (the
-    2081-slot ring, 2065 slots filled, ``kpos = -1`` tail); a 512-token
-    window over the same prefill and over the ring ``fit_kv_cache``
-    builds for a 2080-token prompt (rolled by 2080 % 512, then the step's
-    own slot written); smollm-360m's prefill and a decode step at the
-    launcher's defaults (D=64, g=3)."""
+def _flash_cases(np):
+    """The LM path's prefill attention calls at full width, as
+    ``(label, B, Hq, Hkv, D, Dv, window, qpos, kpos)``: qwen3-4b's prefill
+    (B=4, 2048 tokens, causal), the same under a 512-token window,
+    smollm-360m's at the launcher's defaults (D=64, g=3), and the
+    materialized MLA prefill of deepseek-v2-lite-16b (16 heads, q and k
+    of width 192, v of width 128)."""
+    ar = np.arange
+    return [
+        ("qwen3-4b prefill", 4, 32, 8, 128, 128, 0, ar(2048), ar(2048)),
+        ("qwen3-4b prefill window=512", 4, 32, 8, 128, 128, 512, ar(2048),
+         ar(2048)),
+        ("smollm-360m prefill", 4, 15, 5, 64, 64, 0, ar(64), ar(64)),
+        ("deepseek MLA prefill", 4, 16, 16, 192, 128, 0, ar(2048),
+         ar(2048)),
+    ]
+
+
+def _decode_cases(np):
+    """The LM path's decode steps at full width, as ``(label, B, Hq, Hkv,
+    D, Dv, window, qpos, kpos, absorbed)``: qwen3-4b mid-generation (the
+    2081-slot ring, 2065 slots filled, ``kpos = -1`` tail), its
+    512-token window over the ring ``fit_kv_cache`` builds for a
+    2080-token prompt (rolled by 2080 % 512, then the step's own slot
+    written), smollm-360m at the launcher's defaults; deepseek-v2-lite's
+    materialized MLA step (16 KV heads, 192 / 128) and its absorbed step
+    (16 query heads on the one latent head, 576 / 512, v the first 512
+    columns of k's rows, scale 1/sqrt(192)) on the same ring; a ring
+    filled to 300 of 2081 slots (most pieces empty); and a query that
+    sees no key at all (zeros by design; the plain version gives the
+    mean of v)."""
     ar = np.arange
     ring = np.where(ar(2081) < 2065, ar(2081), -1)
     win = np.roll(ar(2080 - 512, 2080), 2080 % 512)
     win[2080 % 512] = 2080
     small = np.where(ar(97) < 81, ar(97), -1)
+    part = np.where(ar(2081) < 300, ar(2081), -1)
+    late = ar(2081) + 5000
+    q1 = np.array
     return [
-        ("qwen3-4b prefill", 4, 32, 8, 128, 0, ar(2048), ar(2048)),
-        ("qwen3-4b decode", 4, 32, 8, 128, 0, np.array([2064]), ring),
-        ("qwen3-4b prefill window=512", 4, 32, 8, 128, 512, ar(2048),
-         ar(2048)),
-        ("qwen3-4b decode window=512 ring", 4, 32, 8, 128, 512,
-         np.array([2080]), win),
-        ("smollm-360m prefill", 4, 15, 5, 64, 0, ar(64), ar(64)),
-        ("smollm-360m decode", 4, 15, 5, 64, 0, np.array([80]), small),
+        ("qwen3-4b decode", 4, 32, 8, 128, 128, 0, q1([2064]), ring, False),
+        ("qwen3-4b decode window=512 ring", 4, 32, 8, 128, 128, 512,
+         q1([2080]), win, False),
+        ("smollm-360m decode", 4, 15, 5, 64, 64, 0, q1([80]), small, False),
+        ("deepseek MLA decode materialized", 4, 16, 16, 192, 128, 0,
+         q1([2064]), ring, False),
+        ("deepseek MLA decode absorbed", 4, 16, 1, 576, 512, 0, q1([2064]),
+         ring, True),
+        ("deepseek MLA decode, ring 300 of 2081", 4, 16, 16, 192, 128, 0,
+         q1([299]), part, False),
+        ("deepseek MLA decode absorbed, no visible key", 4, 16, 1, 576, 512,
+         0, q1([2064]), late, True),
     ]
+
+
+def _attn_bound(B, Hq, Hkv, D, Dv, vis, S, T, v_in_k=False):
+    """(bytes s, operations s, visible pairs) of one attention call:
+    q and o read and written once, and each K/V row that some query sees
+    (a latent row once when v is a prefix of k's rows); 2 (D + Dv) FLOPs
+    per visible (q, k) pair and head."""
+    pairs = int(vis.sum())
+    live = int(vis.any(0).sum())
+    row = D if v_in_k else D + Dv
+    nbytes = 4.0 * (B * S * Hq * (D + Dv) + B * live * Hkv * row + S + T)
+    flops = 2.0 * (D + Dv) * pairs * B * Hq
+    return nbytes / HBM_BYTES_S, flops / FP32_FLOP_S, pairs
 
 
 def phase_flash(torch, np, F, record):
     """``flash_attention`` against the plain version (TF32 off) at the
-    LM path's shapes, with its time, the plain version's, one
+    LM path's prefill shapes, with its time, the plain version's, one
     ``F.scaled_dot_product_attention`` call's (same boolean mask, fp32,
-    ``enable_gqa``) and the bound: 4*D FLOPs per visible (q, k) pair and
-    head against the bytes of q, o and every K/V row some query sees."""
+    ``enable_gqa``; v of its own width) and the bound (``_attn_bound``)."""
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
-    for label, B, Hq, Hkv, D, window, qp_np, kp_np in _attn_cases(np):
+    for label, B, Hq, Hkv, D, Dv, window, qp_np, kp_np in _flash_cases(np):
         S, T = len(qp_np), len(kp_np)
         q = torch.randn((B, S, Hq, D), device=dev, generator=gen)
         k = torch.randn((B, T, Hkv, D), device=dev, generator=gen)
-        v = torch.randn((B, T, Hkv, D), device=dev, generator=gen)
+        v = torch.randn((B, T, Hkv, Dv), device=dev, generator=gen)
         qp = torch.from_numpy(qp_np.astype(np.int32)).to(dev)
         kp = torch.from_numpy(kp_np.astype(np.int32)).to(dev)
         run = lambda: kflash.flash_attention(q, k, v, qp, kp, causal=True,
@@ -314,29 +367,102 @@ def phase_flash(torch, np, F, record):
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=vis, enable_gqa=True)
         lib_err = float((lib().transpose(1, 2) - r).abs().max())
-        pairs = int(vis.sum())
-        live_rows = int(vis.any(0).sum())
-        flops = 4.0 * D * pairs * B * Hq
-        nbytes = 4.0 * (2 * B * S * Hq * D + 2 * B * live_rows * Hkv * D
-                        + S + T)
-        bs, os_ = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
-        reps = 5 if S > 1 else 20
+        bs, os_, pairs = _attn_bound(B, Hq, Hkv, D, Dv, vis, S, T)
         rec = {"B": B, "S": S, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
-               "window": window, "visible_pairs": pairs,
-               "ms": _time_ms(torch, run, reps),
-               "plain_ms": _time_ms(torch, plain, reps),
-               "library_ms": _time_ms(torch, lib, reps),
+               "Dv": Dv, "window": window, "visible_pairs": pairs,
+               "ms": _time_ms(torch, run), "plain_ms": _time_ms(torch, plain),
+               "library_ms": _time_ms(torch, lib),
                "bound_ms": 1e3 * max(bs, os_),
                "bound_by": "operations" if os_ >= bs else "bytes",
                "max_abs_err": err, "library_max_abs_err": lib_err}
-        print(f"  flash_attention {label:31s} B={B} S={S} T={T} "
-              f"Hq={Hq} Hkv={Hkv} D={D}: max abs err {err:.3g}; kernel "
+        print(f"  flash_attention {label:28s} B={B} S={S} T={T} Hq={Hq} "
+              f"Hkv={Hkv} D={D} Dv={Dv}: max abs err {err:.3g}; kernel "
               f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
               f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})", flush=True)
         out[label] = rec
         del q, k, v, y, r, qt, kt, vt, vis
+        torch.cuda.empty_cache()
     record["flash_attention"] = out
+    return out
+
+
+def phase_decode(torch, np, F, record):
+    """``decode_attention`` against the plain version (rtol = atol =
+    1e-4) at the LM path's decode steps (``_decode_cases``), the absorbed
+    step on strided views of one latent buffer; a query with no visible
+    key must give zeros.  With its time, the plain version's, one
+    ``F.scaled_dot_product_attention`` call's (same mask, ``enable_gqa``)
+    and the bound (``_attn_bound``, the latent rows counted once)."""
+    from repro_torch.kernels import decode_attention as kdecode
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for (label, B, Hq, Hkv, D, Dv, window, qp_np, kp_np,
+         absorbed) in _decode_cases(np):
+        T = len(kp_np)
+        q = torch.randn((B, Hq, D), device=dev, generator=gen)
+        if absorbed:                         # k and v: views of the rows
+            k = torch.randn((B, T, D), device=dev, generator=gen)[:, :, None]
+            v = k[..., :Dv]
+            scale = 192 ** -0.5
+        else:
+            k = torch.randn((B, T, Hkv, D), device=dev, generator=gen)
+            v = torch.randn((B, T, Hkv, Dv), device=dev, generator=gen)
+            scale = None
+        qp = torch.from_numpy(qp_np.astype(np.int32)).to(dev)
+        kp = torch.from_numpy(kp_np.astype(np.int32)).to(dev)
+        run = lambda: kdecode.decode_attention(q, k, v, kp, qp,
+                                               window=window, scale=scale)
+        plain = lambda: ref.decode_attention(q, k, v, kp, qp, window=window,
+                                             scale=scale)
+        y, r = run(), plain()
+        torch.cuda.synchronize()
+        vis = ref.visible(qp, kp, True, window)
+        seen = bool(vis.any())
+        want = r if seen else torch.zeros_like(r)
+        err = float((y - want).abs().max())
+        if not (torch.allclose(y, want, rtol=TOL, atol=TOL) if seen
+                else torch.equal(y, want)):
+            raise AssertionError(f"decode_attention {label}: max abs err "
+                                 f"{err} beyond rtol=atol={TOL}"
+                                 + ("" if seen else " (want zeros)"))
+        if not torch.equal(y, run()):
+            raise AssertionError(f"decode_attention {label}: two runs differ")
+        rec = {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D, "Dv": Dv,
+               "window": window, "absorbed": absorbed,
+               "visible_keys": int(vis.sum()), "max_abs_err": err,
+               "plan": dict(zip(("ts", "n_split"), kdecode.split_plan(
+                   B, Hkv, Hq // Hkv, T, kdecode._sm_count(0))))}
+        if seen:
+            qt = q[:, :, None].contiguous()
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=vis, enable_gqa=True, scale=scale)
+            lib_err = float((lib()[:, :, 0] - r).abs().max())
+            bs, os_, _ = _attn_bound(B, Hq, Hkv, D, Dv, vis, 1, T,
+                                     v_in_k=absorbed)
+            rec.update({"ms": _time_ms(torch, run, 20),
+                        "plain_ms": _time_ms(torch, plain, 20),
+                        "library_ms": _time_ms(torch, lib, 20),
+                        "bound_ms": 1e3 * max(bs, os_),
+                        "bound_by": "operations" if os_ >= bs else "bytes",
+                        "library_max_abs_err": lib_err})
+            print(f"  decode_attention {label:38s} B={B} T={T} Hq={Hq} "
+                  f"Hkv={Hkv} D={D} Dv={Dv}: max abs err {err:.3g}; kernel "
+                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
+                  f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+                  f"ms ({rec['bound_by']}); {rec['plan']['n_split']} pieces "
+                  f"of {rec['plan']['ts']} keys", flush=True)
+            del qt, kt, vt
+        else:
+            print(f"  decode_attention {label:38s}: zeros, as designed (the "
+                  f"plain version gives the mean of v)", flush=True)
+        out[label] = rec
+        del q, k, v, y, r, vis
+    record["decode_attention"] = out
     torch.cuda.empty_cache()
     return out
 
@@ -464,8 +590,11 @@ def phase_ssd(torch, record):
 def phase_gmm(torch, record):
     """``moe_gmm`` against the plain version (rtol = atol = 1e-4) at the
     phi3.5-moe shapes: prefill (B = 4, prompt 2048: C = 324 a sequence,
-    [16, 1296, 4096]), decode (B = 4: [16, 16, 4096]), and a C and an f
-    off the kernel's tiles ([4, 37, 4096], f = 1000); inputs at unit
+    [16, 1296, 4096]), decode (B = 4: [16, 16, 4096]); at the
+    deepseek-v2-lite shapes (64 experts of f = 1408, top-6: C = 244 a
+    sequence in prefill, [64, 976, 2048], and 6 at decode, [64, 24,
+    2048]); and a C and an f off the kernel's tiles ([4, 37, 4096],
+    f = 1000); inputs at unit
     scale (x ~ N(0, 1), each weight ~ N(0, 1/fan-in of its contracted
     axis)).  Bound: 6 E C d f FLOPs against the bytes of x, the three
     weights and y."""
@@ -477,6 +606,8 @@ def phase_gmm(torch, record):
     out = {}
     for label, E, C, d, f in (("prefill", 16, 1296, 4096, 6400),
                               ("decode", 16, 16, 4096, 6400),
+                              ("deepseek prefill", 64, 976, 2048, 1408),
+                              ("deepseek decode", 64, 24, 2048, 1408),
                               ("ragged", 4, 37, 4096, 1000)):
         x = torch.randn((E, C, d), device=dev, generator=gen)
         wg = torch.randn((E, d, f), device=dev, generator=gen) / math.sqrt(d)
@@ -492,14 +623,14 @@ def phase_gmm(torch, record):
                                  f"rtol=atol={TOL}")
         nbytes = 4.0 * (2 * E * C * d + 3 * E * d * f)
         bs, os_ = nbytes / HBM_BYTES_S, 6.0 * E * C * d * f / FP32_FLOP_S
-        reps = 3 if label == "prefill" else 10
+        reps = 3 if "prefill" in label else 10
         rec = {"E": E, "C": C, "d": d, "f": f,
                "ms": _time_ms(torch, run, reps),
                "plain_ms": _time_ms(torch, plain, reps),
                "bound_ms": 1e3 * max(bs, os_),
                "bound_by": "operations" if os_ >= bs else "bytes",
                "max_abs_err": err, "y_abs_max": float(r.abs().max())}
-        print(f"  moe_gmm {label:7s} [{E},{C},{d}] f={f}: max abs err "
+        print(f"  moe_gmm {label:16s} [{E},{C},{d}] f={f}: max abs err "
               f"{err:.3g}; kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})", flush=True)
@@ -521,35 +652,42 @@ def _device_ms_by_kernel(torch, prof):
     return out
 
 
-def phase_llm_profile(torch, r, max_len):
+def phase_llm_profile(torch, r, max_len, absorbed_ms=None):
     """Device time by kernel class over one traced prefill and one traced
-    decode step of the served model, and the card's idle share of the
-    untraced prefill and mean decode step."""
+    decode step of the served model (and, given the untraced absorbed
+    decode's ms/token, one traced absorbed MLA step), and the card's
+    idle share of the untraced prefill and mean decode step."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer
 
     cfg, rt = r["cfg"], r["rt"]
     out = {}
-    walls = {"prefill": 1e3 * r["prefill_s"],
-             "decode": r["decode_ms_per_token"]}
-    for what in ("prefill", "decode"):
+    runs = [("prefill", rt, 1e3 * r["prefill_s"]),
+            ("decode", rt, r["decode_ms_per_token"])]
+    if absorbed_ms is not None:
+        runs.append(("decode absorbed",
+                     dataclasses.replace(rt, absorbed_mla=True), absorbed_ms))
+    for step, (what, rt_, wall) in enumerate(runs):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             if what == "prefill":
                 _, cache = transformer.prefill(r["params"], r["tokens"], cfg,
-                                               rt, max_len=max_len)
-            else:                                   # the first step again
+                                               rt_, max_len=max_len)
+            else:                                   # the first steps again
                 transformer.decode_step(r["params"], cache,
-                                        r["generated"][:, 0], cfg, rt)
+                                        r["generated"][:, step - 1], cfg,
+                                        rt_)
             torch.cuda.synchronize()
         by = _device_ms_by_kernel(torch, prof)
-        wall = walls[what]
-        cls = {"flash_attention": 0.0, "ssd": 0.0, "moe_gmm": 0.0,
-               "conv1d_stripe": 0.0, "gemm": 0.0, "other": 0.0}
+        cls = {"flash_attention": 0.0, "decode_attention": 0.0, "ssd": 0.0,
+               "moe_gmm": 0.0, "conv1d_stripe": 0.0, "gemm": 0.0,
+               "other": 0.0}
         for name, (ms, _) in by.items():
             low = name.lower()
             key = ("flash_attention" if "flash" in name else
+                   "decode_attention" if "decode_split" in name
+                   or "decode_combine" in name else
                    "ssd" if "ssd_chunk" in name else
                    "moe_gmm" if "gmm_kernel" in name else
                    "conv1d_stripe" if "conv1d_stripe" in name else
@@ -618,14 +756,16 @@ def _plain_prefill(torch, r, counters, max_len, rt, moe_inputs=None):
     return plain
 
 
-def _check_teacher_forced(torch, name, cached, full, S):
+def _check_teacher_forced(torch, name, cached, full, S, rows=None):
     """Cached logits (``cached[t]``, the prefill's then each decode
     step's, at position S - 1 + t) against the teacher-forced forward
     ``full`` on the same tokens, within 2e-3 (the reference's bound,
-    ``tests/test_arch_smoke.py:87-93``).  Returns the max abs error."""
+    ``tests/test_arch_smoke.py:87-93``), on the batch ``rows`` (all by
+    default).  Returns the max abs error on those rows."""
     err = 0.0
+    rows = list(range(full.shape[0])) if rows is None else rows
     for t, got in enumerate(cached):
-        want = full[:, S - 1 + t]
+        got, want = got[rows], full[rows, S - 1 + t]
         err = max(err, float((got - want).abs().max()))
         if not torch.allclose(got, want, rtol=2e-3, atol=2e-3):
             raise AssertionError(f"{name}: cached logits at position "
@@ -702,14 +842,20 @@ def phase_llm(torch, np, record, card, argv, counters, expected,
     return rec
 
 
-def _routing_flips(p_seg, cfg, cf, h_k, h_p, where):
+def _routing_flips(p_seg, cfg, cf, h_k, h_p, where, tainted=()):
     """Each MoE layer's routing of the kernel run's input ``h_k[l]``
     against the plain run's ``h_p[l]``: a relative difference of ~1e-6
-    between the two can flip a top-2 choice at a near-tie, so a flipped
+    between the two can flip a top-k choice at a near-tie, so a flipped
     choice fails unless the two experts' probabilities in the plain run
-    differ by less than 1e-5; each flip is reported with its layer,
-    token and gap.  Returns (the flips, the choices the capacity dropped
-    in each layer of the kernel run)."""
+    differ by less than 1e-5.  Such a flip sends that token through
+    another expert, so from the next layer on the two runs differ by
+    O(1) at that token and, through causal attention and the
+    per-sequence capacity, at the later tokens of its sequence: a flip
+    there is downstream of it, reported and not held to the gap.  Each
+    flip is reported with its layer, token and gap; every flip in a
+    sequence of ``tainted`` (one that diverged before) is downstream.
+    Returns (the flips, the choices the capacity dropped in each layer of
+    the kernel run)."""
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer
 
@@ -717,69 +863,104 @@ def _routing_flips(p_seg, cfg, cf, h_k, h_p, where):
         raise AssertionError(f"{where}: captured {len(h_k)} kernel-run and "
                              f"{len(h_p)} plain-run MoE inputs")
     flips, dropped = [], []
+    first = {b: 0 for b in tainted}      # batch -> earliest flipped token
     for layer, (hk, hp) in enumerate(zip(h_k, h_p)):
         p_l = transformer._layer(p_seg, layer)["mlp"]
         rk = moe_mod.route(p_l, hk, cfg, cf)
         rp = moe_mod.route(p_l, hp, cfg, cf)
         dropped.append(int((~rk.keep).sum()))
         ek, ep = rk.top_e.sort(-1).values, rp.top_e.sort(-1).values
+        this = {}
         for b, s_ in (ek != ep).any(-1).nonzero().tolist():
             only_p = sorted(set(ep[b, s_].tolist()) - set(ek[b, s_].tolist()))
             only_k = sorted(set(ek[b, s_].tolist()) - set(ep[b, s_].tolist()))
             gap = max(abs(float(rp.probs[b, s_, i] - rp.probs[b, s_, j]))
                       for i in only_p for j in only_k)
+            downstream = s_ >= first.get(b, math.inf)
             flips.append({"where": where, "layer": layer, "batch": b,
                           "token": s_, "kernel": only_k, "plain": only_p,
-                          "gap": gap})
-            print(f"    routing flip ({where}): layer {layer}, batch {b}, "
-                  f"token {s_}: kernel {only_k}, plain {only_p}, plain-run "
-                  f"probability gap {gap:.3g}", flush=True)
-            if gap >= 1e-5:
+                          "gap": gap, "downstream": downstream})
+            if len(flips) <= 20:
+                print(f"    routing flip ({where}): layer {layer}, batch {b}, "
+                      f"token {s_}: kernel {only_k}, plain {only_p}, "
+                      f"plain-run probability gap {gap:.3g}"
+                      + (" (downstream of a near-tie flip)" if downstream
+                         else ""), flush=True)
+            if gap >= 1e-5 and not downstream:
                 raise AssertionError(f"{where}: routing flip at layer "
                                      f"{layer}, token {s_} with gap {gap} "
                                      f">= 1e-5")
+            this[b] = min(this.get(b, math.inf), s_)
+        for b, s_ in this.items():
+            first[b] = min(first.get(b, math.inf), s_)
+    if len(flips) > 20:
+        print(f"    ... {len(flips)} flipped choices in all ({where}), "
+              f"{sum(f['downstream'] for f in flips)} of them downstream",
+              flush=True)
     return flips, dropped
 
 
-def phase_moe(torch, record, card, argv, counters, expected, cfg,
-              profile=False):
-    """phi3.5-moe through its launcher with the depth-cut ``cfg``, the
-    counters held to ``expected``; then, under the near-tie rule of
-    ``_routing_flips``:
+def _hold_untouched_rows(torch, name, got, want, flips):
+    """Logits ``[B, V]`` kernel against plain within 1e-4 for every
+    sequence no routing flip touched (sequences share nothing: attention
+    and the MoE capacity are per sequence); the others are reported.
+    Returns (max abs error over all rows, the rows held)."""
+    hit = {f["batch"] for f in flips}
+    rows = [b for b in range(got.shape[0]) if b not in hit]
+    err = float((got - want).abs().max())
+    if rows and not torch.allclose(got[rows], want[rows], rtol=TOL,
+                                   atol=TOL):
+        raise AssertionError(f"{name}: kernel vs plain on the rows no "
+                             f"routing flip touched {rows}: max abs err "
+                             f"{float((got[rows] - want[rows]).abs().max())}")
+    return err, rows
 
-    * the prefill through the kernels and through the plain versions,
-      each MoE layer's input collected; with no routing flip the served
-      prefill logits are held to 1e-4 of the plain ones; with one they
-      are reported, not asserted;
-    * each MoE layer's ``moe_apply`` kernel against plain on the SAME
-      input (the kernel run's), so the routing is the same by
-      construction: max abs difference over the output's RMS (the scale
-      the next ``rms_norm`` reads it at) within 1e-4;
-    * the routed choices the capacity dropped in prefill are counted;
-    * one more decode step of the served cache (capacity factor as
-      served), through the kernels on a copy and through the plain
-      versions on the cache itself, the logits within 1e-4 under the
-      same rule;
-    * the cached decode against the teacher-forced forward (2e-3) runs
-      its own prefill of the served prompt, two decode steps and forward
-      at ``capacity_factor = E / top_k``, where the capacity is at least
-      S and nothing is dropped (at 1.25 a prefill at S and a forward at
-      S + 2 drop different choices)."""
+
+def _clone_cache(cache):
+    """A copy of a decode cache (a step advances its cache in place); an
+    MLA segment stays one latent buffer with two column views."""
+    from repro_torch.models import attention as attn
+
+    segs = []
+    for c in cache["segments"]:
+        if set(c) == {"ckv", "krope"}:
+            segs.append(attn.mla_cache(attn.latent_rows(c).clone(),
+                                       c["ckv"].shape[-1]))
+        else:
+            segs.append({k: v.clone() for k, v in c.items()})
+    return {"segments": segs, "pos": cache["pos"].clone(),
+            "idx": cache["idx"]}
+
+
+def _moe_segment(cfg, params):
+    """(index, layers, stacked params) of the model's MoE segment."""
+    from repro_torch.models import transformer
+
+    (si, n), = [(i, n) for i, (bt, n, _) in
+                enumerate(transformer.segments(cfg)) if bt == "attn_moe"]
+    return si, n, params["segments"][si]
+
+
+def _moe_prefill_checks(torch, r, counters, max_len):
+    """The served prompt's prefill through the kernels and through the
+    plain versions, each MoE layer's input collected: routing compared
+    (``_routing_flips``), each MoE layer's ``moe_apply`` kernel against
+    plain on the SAME input (the kernel run's) within 1e-4 of the
+    output's RMS, and the prefill logits within 1e-4 for the sequences
+    no flip touched (``_hold_untouched_rows``).  Returns (flips, dropped
+    choices a layer, same-input errors, logits error, the rows held, the
+    kernel prefill's cache)."""
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer
 
-    args, r, launches = _serve_counted(torch, argv, counters, expected,
-                                       cfg=cfg)
-    cfg, rt, params, S = r["cfg"], r["rt"], r["params"], args.prompt_len
-    plain_rt = dataclasses.replace(rt, impl="torch")
-    max_len = S + args.new_tokens + 1
-    (si, n), = [(i, n) for i, (bt, n, _) in
-                enumerate(transformer.segments(cfg)) if bt == "attn_moe"]
-    p_seg, cf = params["segments"][si], rt.capacity_factor
+    cfg, rt, params = r["cfg"], r["rt"], r["params"]
+    _, n, p_seg = _moe_segment(cfg, params)
+    cf = rt.capacity_factor
     h_k, h_p = [], []
-    transformer.prefill(params, r["tokens"], cfg, rt, max_len=max_len,
-                        moe_inputs=h_k)
-    plain = _plain_prefill(torch, r, counters, max_len, plain_rt,
+    _, cache = transformer.prefill(params, r["tokens"], cfg, rt,
+                                   max_len=max_len, moe_inputs=h_k)
+    plain = _plain_prefill(torch, r, counters, max_len,
+                           dataclasses.replace(rt, impl="torch"),
                            moe_inputs=h_p)
     if len(h_k) != n:
         raise AssertionError(f"captured {len(h_k)} MoE inputs, want {n}")
@@ -798,71 +979,284 @@ def phase_moe(torch, record, card, argv, counters, expected, cfg,
                                  f"{rel[-1]} > {TOL} (RMS {rms:.4g})")
         del yk, yp
     del h_k, h_p
-    logits = r["prefill_logits"]
-    plain_err = float((logits - plain).abs().max())
-    if not flips and not torch.allclose(logits, plain, rtol=TOL, atol=TOL):
-        raise AssertionError(f"{cfg.name}: prefill logits, kernel vs plain "
-                             f"with identical routing: max abs err "
-                             f"{plain_err}")
+    plain_err, rows = _hold_untouched_rows(torch, f"{cfg.name} prefill",
+                                           r["prefill_logits"], plain, flips)
     del plain
-    # the next served step, kernel (on a copy) against plain
-    cache = r["cache"]
-    copy = {"segments": [{k: v.clone() for k, v in c.items()}
-                         for c in cache["segments"]],
-            "pos": cache["pos"].clone(), "idx": cache["idx"]}
-    tok, d_k, d_p = r["generated"][:, -1], [], []
-    lk, _ = transformer.decode_step(params, copy, tok, cfg, rt,
-                                    moe_inputs=d_k)
-    lp, _ = transformer.decode_step(params, cache, tok, cfg, plain_rt,
-                                    moe_inputs=d_p)
-    d_flips, _ = _routing_flips(p_seg, cfg, cf, d_k, d_p, "decode")
-    step_err = float((lk - lp).abs().max())
-    if not d_flips and not torch.allclose(lk, lp, rtol=TOL, atol=TOL):
-        raise AssertionError(f"{cfg.name}: served decode step logits, kernel "
-                             f"vs plain with identical routing: max abs err "
-                             f"{step_err}")
-    del copy, d_k, d_p, lk, lp, r["cache"], cache
     torch.cuda.empty_cache()
+    return flips, dropped, rel, plain_err, rows, cache
+
+
+def _moe_step_check(torch, r, cache, tok, rt, where):
+    """One decode step from ``cache`` through the kernels (on a copy) and
+    through the plain versions (on ``cache`` itself), the logits within
+    1e-4 for the sequences no near-tie flip touched.  Returns (flips,
+    error, the rows held)."""
+    from repro_torch.models import transformer
+
+    cfg, params = r["cfg"], r["params"]
+    _, _, p_seg = _moe_segment(cfg, params)
+    d_k, d_p = [], []
+    lk, _ = transformer.decode_step(params, _clone_cache(cache), tok, cfg,
+                                    rt, moe_inputs=d_k)
+    lp, _ = transformer.decode_step(params, cache, tok, cfg,
+                                    dataclasses.replace(rt, impl="torch"),
+                                    moe_inputs=d_p)
+    flips, _ = _routing_flips(p_seg, cfg, rt.capacity_factor, d_k, d_p,
+                              where)
+    err, rows = _hold_untouched_rows(torch, f"{cfg.name} {where}", lk, lp,
+                                     flips)
+    return flips, err, rows
+
+
+def _moe_teacher_forced(torch, r, S, forms=((), )):
+    """The cached decode against the teacher-forced forward (2e-3) on the
+    first ``S + 2`` tokens of the served prompt at ``capacity_factor =
+    E / top_k``, where the capacity is at least S and nothing is dropped
+    (at 1.25 a prefill at S and a forward at S + 2 drop different
+    choices): a prefill of S tokens and two decode steps in each of
+    ``forms`` (``RuntimeOptions`` overrides).  The two sides sum in
+    other orders, so their routings are compared by ``_routing_flips``
+    and a sequence a near-tie flip touched is reported, not held.
+    Returns (the max abs error on the rows held, the flips)."""
+    from repro_torch.models import transformer
+
+    cfg, params = r["cfg"], r["params"]
+    _, _, p_seg = _moe_segment(cfg, params)
     E, k = cfg.moe.n_routed_experts, cfg.moe.top_k
-    rt_all = dataclasses.replace(rt, capacity_factor=E / k)
-    toks, nxt = r["tokens"], r["generated"][:, :2]
-    full, _ = transformer.forward(params, torch.cat([toks, nxt], dim=1),
-                                  cfg, rt_all)
-    got, c_all = transformer.prefill(params, toks, cfg, rt_all,
-                                     max_len=S + 3)
-    cached = [got]
-    for t in range(2):
-        got, c_all = transformer.decode_step(params, c_all, nxt[:, t], cfg,
-                                             rt_all)
-        cached.append(got)
-    tf_err = _check_teacher_forced(torch, cfg.name, cached, full, S)
-    del full, c_all, cached, got
+    rt_all = dataclasses.replace(r["rt"], capacity_factor=E / k)
+    seq = torch.cat([r["tokens"], r["generated"][:, :2]], dim=1)[:, :S + 2]
+    h_full = []
+    full, _ = transformer.forward(params, seq, cfg, rt_all,
+                                  moe_inputs=h_full)
+    err, all_flips = 0.0, []
+    for form in forms:
+        rt_f = dataclasses.replace(rt_all, **dict(form))
+        h_pre, h_steps = [], [[], []]
+        got, c_all = transformer.prefill(params, seq[:, :S], cfg, rt_f,
+                                         max_len=S + 3, moe_inputs=h_pre)
+        cached = [got]
+        for t in range(2):
+            got, c_all = transformer.decode_step(params, c_all,
+                                                 seq[:, S + t], cfg, rt_f,
+                                                 moe_inputs=h_steps[t])
+            cached.append(got)
+        h_cached = [torch.cat([a, b, c], dim=1)
+                    for a, b, c in zip(h_pre, *h_steps)]
+        flips, _ = _routing_flips(p_seg, cfg, rt_all.capacity_factor,
+                                  h_cached, h_full,
+                                  f"cached {dict(form) or 'materialized'} "
+                                  f"vs teacher-forced")
+        hit = {f["batch"] for f in flips}
+        rows = [b for b in range(seq.shape[0]) if b not in hit]
+        err = max(err, _check_teacher_forced(torch, cfg.name, cached, full,
+                                             S, rows))
+        all_flips += flips
+        del c_all, cached, got, h_pre, h_steps, h_cached
+    del full, h_full
+    torch.cuda.empty_cache()
+    return err, all_flips
+
+
+def phase_moe(torch, record, card, argv, counters, expected, cfg,
+              profile=False):
+    """phi3.5-moe through its launcher with the depth-cut ``cfg``, the
+    counters held to ``expected``; then, under the near-tie rule of
+    ``_routing_flips``: the prefill checks of ``_moe_prefill_checks``
+    (routing, each MoE layer kernel vs plain on the same input, the
+    logits, the choices the capacity dropped); one more decode step of
+    the served cache (capacity factor as served) kernel against plain
+    (``_moe_step_check``); and the cached decode against the
+    teacher-forced forward at the served prompt, at a capacity that
+    drops nothing (``_moe_teacher_forced``)."""
+    args, r, launches = _serve_counted(torch, argv, counters, expected,
+                                       cfg=cfg)
+    cfg, rt, S = r["cfg"], r["rt"], args.prompt_len
+    max_len = S + args.new_tokens + 1
+    flips, dropped, rel, plain_err, rows, pre = _moe_prefill_checks(
+        torch, r, counters, max_len)
+    del pre
+    d_flips, step_err, d_rows = _moe_step_check(
+        torch, r, r.pop("cache"), r["generated"][:, -1], rt, "decode")
+    torch.cuda.empty_cache()
+    tf_err, tf_flips = _moe_teacher_forced(torch, r, S)
+    E, k = cfg.moe.n_routed_experts, cfg.moe.top_k
+    n = len(dropped)
     total = args.batch * S * k * n
     print(f"    routing: {len(flips)} flipped choices over "
           f"{args.batch * S * n} prefill routings, {len(d_flips)} over "
           f"{args.batch * n} decode routings; prefill logits vs plain max "
-          f"abs err {plain_err:.3g} ({'reported' if flips else 'asserted'}); "
-          f"moe_apply same-input max err/RMS {max(rel):.3g}; capacity "
-          f"dropped {sum(dropped)} of {total} routed choices in prefill "
-          f"(per layer {dropped}); served decode step vs plain {step_err:.3g} "
-          f"({'reported' if d_flips else 'asserted'}); cached vs "
+          f"abs err {plain_err:.3g} (held on rows {rows}); moe_apply "
+          f"same-input max err/RMS {max(rel):.3g}; capacity dropped "
+          f"{sum(dropped)} of {total} routed choices in prefill (per layer "
+          f"{dropped}); served decode step vs plain {step_err:.3g} (held on "
+          f"rows {d_rows}); cached vs "
           f"teacher-forced (capacity factor {E / k:g}, prompt {S}) "
-          f"{tf_err:.3g}", flush=True)
+          f"{tf_err:.3g} ({len(tf_flips)} routing flips)", flush=True)
     rec = _llm_record(r, args, launches, card,
                       prefill_vs_plain_max_abs_err=plain_err,
-                      prefill_logits_asserted=not flips,
+                      prefill_logits_held_rows=rows,
                       routing_flips=flips + d_flips,
                       moe_same_input_max_err_over_rms=rel,
                       prefill_dropped_choices=dropped,
                       prefill_routed_choices=total,
                       decode_step_vs_plain_max_abs_err=step_err,
-                      decode_step_asserted=not d_flips,
+                      decode_step_held_rows=d_rows,
                       decode_vs_forward_max_abs_err=tf_err,
+                      decode_vs_forward_routing_flips=tf_flips,
                       decode_vs_forward_capacity_factor=E / k)
     if profile:
         rec["profile"] = phase_llm_profile(torch, r, max_len)
     record[f"llm_{args.arch}"] = rec
-    del r, params
+    del r
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _decode_loop(torch, r, cache, rt, moe_inputs=None):
+    """Greedy-fed decode from ``cache`` (advanced in place) on the served
+    run's tokens: (the logits of every step, ms/token, host clock after
+    a sync).  ``moe_inputs`` (a list) receives each step's list of MoE
+    layer inputs."""
+    from repro_torch.models import transformer
+
+    gen, out = r["generated"], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(gen.shape[1] - 1):
+        h = None
+        if moe_inputs is not None:
+            h = []
+            moe_inputs.append(h)
+        lg, cache = transformer.decode_step(r["params"], cache, gen[:, t],
+                                            r["cfg"], rt, moe_inputs=h)
+        out.append(lg)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0) / (gen.shape[1] - 1)
+
+
+def phase_mla(torch, record, card, argv, counters, expected, profile=False,
+              tf_prompt=512):
+    """deepseek-v2-lite-16b at full width and depth through its launcher
+    (MLA materialized, the launcher's default), the counters held to
+    ``expected``; the prefill checks and one more served step of
+    ``phase_moe``; then the absorbed form (``absorbed_mla``) from a copy
+    of the post-prefill cache (the same cache in both forms), fed the
+    served tokens, with its launches counted: every step's logits against
+    the materialized form's from the same cache within 2e-3 (the
+    reference's bound, ``tests/test_perf_levers.py:71-82``), and one
+    absorbed step against plain within 1e-4; last, the cached decode of
+    both forms against the teacher-forced forward on the first
+    ``tf_prompt`` tokens of the prompt at a capacity that drops nothing
+    (at the served 2048 the capacity buffers of that check do not fit
+    beside the 58.5 GiB of weights)."""
+    args, r, launches = _serve_counted(torch, argv, counters, expected)
+    cfg, rt, S = r["cfg"], r["rt"], args.prompt_len
+    max_len = S + args.new_tokens + 1
+    flips, dropped, rel, plain_err, rows, pre = _moe_prefill_checks(
+        torch, r, counters, max_len)
+    served = r.pop("cache")
+    tok = r["generated"][:, -1]
+    rt_abs = dataclasses.replace(rt, absorbed_mla=True)
+    a_flips, a_step_err, a_rows = _moe_step_check(
+        torch, r, _clone_cache(served), tok, rt_abs, "absorbed decode")
+    d_flips, step_err, d_rows = _moe_step_check(torch, r, served, tok, rt,
+                                                "decode")
+    del served
+    torch.cuda.empty_cache()
+    # the absorbed decode, counted, from a copy of the post-prefill cache
+    for c in counters:
+        c.reset()
+    h_abs, h_mat = [], []
+    abs_logits, abs_ms = _decode_loop(torch, r, _clone_cache(pre), rt_abs,
+                                      h_abs)
+    abs_launches = {c.name: c.value for c in counters}
+    want = {c.name: 0 for c in counters}
+    L, n_new = cfg.num_layers, args.new_tokens
+    want.update({"decode_attention": L * n_new,
+                 "moe_gmm": len(dropped) * n_new})
+    if abs_launches != want:
+        raise AssertionError(f"absorbed decode: launches {abs_launches}, "
+                             f"want {want}")
+    mat_logits, mat_ms = _decode_loop(torch, r, pre, rt, h_mat)
+    del pre
+    rerun_err = max(float((a - b).abs().max())
+                    for a, b in zip(mat_logits, r["step_logits"]))
+    # the two forms sum in other orders: a near-tie routing flip between
+    # them sends a token through another expert, and that sequence's
+    # caches, and so its later steps, part; those rows are reported
+    _, _, p_seg = _moe_segment(cfg, r["params"])
+    hit, ab_flips, abs_err, held_err = set(), [], 0.0, 0.0
+    for t, (a, m) in enumerate(zip(abs_logits, mat_logits)):
+        flips_t, _ = _routing_flips(p_seg, cfg, rt.capacity_factor,
+                                    h_abs[t], h_mat[t],
+                                    f"absorbed vs materialized, step {t}",
+                                    tainted=hit)
+        ab_flips += flips_t
+        hit |= {f["batch"] for f in flips_t}
+        keep = [b for b in range(a.shape[0]) if b not in hit]
+        abs_err = max(abs_err, float((a - m).abs().max()))
+        if keep:
+            held_err = max(held_err, float((a[keep] - m[keep]).abs().max()))
+        if keep and not torch.allclose(a[keep], m[keep], rtol=2e-3,
+                                       atol=2e-3):
+            raise AssertionError(f"{cfg.name}: absorbed vs materialized "
+                                 f"decode step {t}, rows {keep}: max abs err "
+                                 f"{float((a[keep] - m[keep]).abs().max())}")
+    ab_rows = [b for b in range(r["generated"].shape[0]) if b not in hit]
+    del abs_logits, mat_logits, h_abs, h_mat
+    torch.cuda.empty_cache()
+    tf_err, tf_flips = _moe_teacher_forced(
+        torch, r, tf_prompt, forms=((), (("absorbed_mla", True),)))
+    E, k = cfg.moe.n_routed_experts, cfg.moe.top_k
+    n = len(dropped)
+    total = args.batch * S * k * n
+    print(f"    routing: {len(flips)} flipped choices over "
+          f"{args.batch * S * n} prefill routings, "
+          f"{len(d_flips) + len(a_flips)} over {2 * args.batch * n} decode "
+          f"routings; prefill logits vs plain max abs err {plain_err:.3g} "
+          f"(held on rows {rows}); moe_apply same-input max err/RMS "
+          f"{max(rel):.3g}; capacity dropped {sum(dropped)} of {total} "
+          f"routed choices in prefill (per layer {dropped}); served decode "
+          f"step vs plain {step_err:.3g} (held on rows {d_rows}), absorbed "
+          f"step vs plain {a_step_err:.3g} (held on rows {a_rows})",
+          flush=True)
+    print(f"    absorbed decode: launches {abs_launches}; {abs_ms:.3f} "
+          f"ms/token against {mat_ms:.3f} ms/token materialized from the "
+          f"same cache ({r['decode_ms_per_token']:.3f} served); logits vs "
+          f"materialized max abs err {held_err:.3g} on the rows held "
+          f"{ab_rows} (2e-3; {len(ab_flips)} routing flips, {abs_err:.3g} "
+          f"over all rows); materialized rerun vs served steps "
+          f"{rerun_err:.3g}; cached vs teacher-forced (capacity factor "
+          f"{E / k:g}, prompt {tf_prompt}, both forms) {tf_err:.3g} "
+          f"({len(tf_flips)} routing flips)", flush=True)
+    rec = _llm_record(r, args, launches, card,
+                      prefill_vs_plain_max_abs_err=plain_err,
+                      prefill_logits_held_rows=rows,
+                      routing_flips=flips + d_flips + a_flips,
+                      moe_same_input_max_err_over_rms=rel,
+                      prefill_dropped_choices=dropped,
+                      prefill_routed_choices=total,
+                      decode_step_vs_plain_max_abs_err=step_err,
+                      decode_step_held_rows=d_rows,
+                      absorbed_step_vs_plain_max_abs_err=a_step_err,
+                      absorbed_step_held_rows=a_rows,
+                      absorbed_launches=abs_launches,
+                      absorbed_decode_ms_per_token=abs_ms,
+                      materialized_rerun_decode_ms_per_token=mat_ms,
+                      absorbed_vs_materialized_max_abs_err=held_err,
+                      absorbed_vs_materialized_held_rows=ab_rows,
+                      absorbed_vs_materialized_all_rows_max_abs_err=abs_err,
+                      absorbed_vs_materialized_routing_flips=ab_flips,
+                      materialized_rerun_vs_served_max_abs_err=rerun_err,
+                      decode_vs_forward_max_abs_err=tf_err,
+                      decode_vs_forward_routing_flips=tf_flips,
+                      decode_vs_forward_prompt=tf_prompt,
+                      decode_vs_forward_capacity_factor=E / k)
+    if profile:
+        rec["profile"] = phase_llm_profile(torch, r, max_len,
+                                           absorbed_ms=abs_ms)
+    record[f"llm_{args.arch}"] = rec
+    del r
     torch.cuda.empty_cache()
     return rec
 
@@ -1121,6 +1515,7 @@ def main() -> int:
     conv = phase_conv(torch, np, F, specs, record)
     mconv = phase_mamba_conv(torch, np, F, record)
     flash = phase_flash(torch, np, F, record)
+    decode = phase_decode(torch, np, F, record)
     ssd = phase_ssd(torch, record)
     gmm = phase_gmm(torch, record)
 
@@ -1136,29 +1531,36 @@ def main() -> int:
     print("phase 4: dense-LM serving path (qwen3-4b, full width and "
           "depth; smollm-360m)", flush=True)
     from repro_torch.kernels import conv1d_stripe as kconv
+    from repro_torch.kernels import decode_attention as kdecode
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import moe_gmm as kgmm
     from repro_torch.kernels import ssd as kssd
     from repro_torch.kernels import window_gather as kgather
     from repro_torch.configs.registry import get_config
     counters = (kgather.launches, kconv.launches_stacked, kconv.launches,
-                kflash.launches, kssd.launches, kgmm.launches)
+                kflash.launches, kdecode.launches, kssd.launches,
+                kgmm.launches)
     served = ["--batch", "4", "--prompt-len", "2048", "--new-tokens", "32",
               "--seed", str(SEED)]
 
-    def per_layer_and_step(*names):
-        """Each kernel once a layer in prefill and in every decode step."""
-        return lambda cfg, a: {k: cfg.num_layers * (1 + a.new_tokens)
-                               for k in names}
+    def attention_launches(cfg, a, moe_layers=0):
+        """``flash_attention`` once a layer in prefill, ``decode_attention``
+        once a layer in every decode step; ``moe_gmm`` once a MoE layer in
+        prefill and in every step."""
+        L, n = cfg.num_layers, a.new_tokens
+        want = {"flash_attention": L, "decode_attention": L * n}
+        if moe_layers:
+            want["moe_gmm"] = moe_layers * (1 + n)
+        return want
 
-    dense = per_layer_and_step("flash_attention")
     qwen = phase_llm(torch, np, record, card, ["--arch", "qwen3-4b"] + served,
-                     counters, dense, profile=profile)
-    if (qwen["layers"], qwen["d_model"]) != (36, 2560):
+                     counters, attention_launches, profile=profile)
+    if (qwen["layers"], qwen["d_model"], qwen["launches"]["flash_attention"],
+            qwen["launches"]["decode_attention"]) != (36, 2560, 36, 1152):
         raise AssertionError(f"qwen3-4b served at {qwen}")
-    phase_llm(torch, np, record, card, ["--arch", "smollm-360m"], counters,
-              dense)
-    fp, fd = flash["qwen3-4b prefill"], flash["qwen3-4b decode"]
+    smollm = phase_llm(torch, np, record, card, ["--arch", "smollm-360m"],
+                       counters, attention_launches)
+    fp, fd = flash["qwen3-4b prefill"], decode["qwen3-4b decode"]
     share = {"prefill": 36 * fp["ms"] / (1e3 * qwen["prefill_s"]),
              "decode": 36 * fd["ms"] / qwen["decode_ms_per_token"]}
     record["llm_attention_share"] = share
@@ -1187,19 +1589,44 @@ def main() -> int:
                                   num_layers=10)
     phi = phase_moe(torch, record, card,
                     ["--arch", "phi3.5-moe-42b-a6.6b"] + served, counters,
-                    per_layer_and_step("flash_attention", "moe_gmm"),
+                    lambda cfg, a: attention_launches(cfg, a,
+                                                      cfg.num_layers),
                     phi_cfg, profile=profile)
     m = phi_cfg.moe
     if (phi["layers"], phi["d_model"], m.n_routed_experts, m.top_k,
-            phi["launches"]["moe_gmm"],
-            phi["launches"]["flash_attention"]) != (10, 4096, 16, 2, 330,
-                                                    330):
+            phi["launches"]["moe_gmm"], phi["launches"]["flash_attention"],
+            phi["launches"]["decode_attention"]) != (10, 4096, 16, 2, 330,
+                                                     10, 320):
         raise AssertionError(f"phi3.5-moe served at {phi}")
     g_ms = {k: gmm[k]["ms"] for k in ("prefill", "decode")}
     print(f"  phi3.5-moe moe_gmm share (10 x kernel ms at the phase-2 "
           f"shapes over the served time): prefill "
           f"{10 * g_ms['prefill'] / (1e3 * phi['prefill_s']):.3f}, decode "
           f"step {10 * g_ms['decode'] / phi['decode_ms_per_token']:.3f}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    print("phase 7: MLA serving path (deepseek-v2-lite-16b, full width "
+          "and depth; materialized, then absorbed)", flush=True)
+    ds_cfg = get_config("deepseek-v2-lite-16b")
+    ds = phase_mla(torch, record, card,
+                   ["--arch", "deepseek-v2-lite-16b"] + served, counters,
+                   lambda cfg, a: attention_launches(
+                       cfg, a, cfg.num_layers - cfg.moe.first_dense_layers),
+                   profile=profile)
+    m = ds_cfg.moe
+    if (ds["layers"], ds["d_model"], m.n_routed_experts, m.top_k,
+            ds["launches"]["flash_attention"],
+            ds["launches"]["decode_attention"], ds["launches"]["moe_gmm"],
+            ds["absorbed_launches"]["decode_attention"]) != (
+                27, 2048, 64, 6, 27, 864, 858, 864):
+        raise AssertionError(f"deepseek-v2-lite-16b served at {ds}")
+    dm, da = (decode["deepseek MLA decode materialized"],
+              decode["deepseek MLA decode absorbed"])
+    print(f"  deepseek-v2-lite-16b decode_attention share (27 x kernel ms at "
+          f"the phase-2 shapes over the decode step): materialized "
+          f"{27 * dm['ms'] / ds['decode_ms_per_token']:.3f}, absorbed "
+          f"{27 * da['ms'] / ds['absorbed_decode_ms_per_token']:.3f}",
           flush=True)
 
     def conv_row(name, key, replaces):
@@ -1227,7 +1654,7 @@ def main() -> int:
         f"[4,2048,{c}]": {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}
         for c, v in mconv.items()}
-    sv, gp, gd = ssd["served"], gmm["prefill"], gmm["decode"]
+    sv, gp = ssd["served"], gmm["prefill"]
     kernels = [
         {"name": "window_gather", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/window_gather.cu",
@@ -1245,12 +1672,39 @@ def main() -> int:
          "launches": qwen["launches"]["flash_attention"],
          "launches_by_path": {
              "qwen3-4b": qwen["launches"]["flash_attention"],
-             "phi3.5-moe (10 layers)": phi["launches"]["flash_attention"]},
+             "smollm-360m": smollm["launches"]["flash_attention"],
+             "phi3.5-moe (10 layers)": phi["launches"]["flash_attention"],
+             "deepseek-v2-lite-16b": ds["launches"]["flash_attention"]},
          "max_abs_err": max(v["max_abs_err"] for v in flash.values()),
          "ms": fp["ms"], "plain_ms": fp["plain_ms"],
          "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
          "library_ms": fp["library_ms"],
-         "shape": "qwen3-4b prefill: B=4 S=T=2048 Hq=32 Hkv=8 D=128 causal"},
+         "shape": "qwen3-4b prefill: B=4 S=T=2048 Hq=32 Hkv=8 D=128 causal",
+         "mla_prefill": {k: flash["deepseek MLA prefill"][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms")}},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:69",
+         "launches": ds["launches"]["decode_attention"],
+         "launches_by_path": {
+             "deepseek-v2-lite-16b materialized":
+                 ds["launches"]["decode_attention"],
+             "deepseek-v2-lite-16b absorbed":
+                 ds["absorbed_launches"]["decode_attention"],
+             "qwen3-4b": qwen["launches"]["decode_attention"],
+             "smollm-360m": smollm["launches"]["decode_attention"],
+             "phi3.5-moe (10 layers)": phi["launches"]["decode_attention"]},
+         "max_abs_err": max(v["max_abs_err"] for v in decode.values()),
+         "ms": dm["ms"], "plain_ms": dm["plain_ms"],
+         "bound_ms": dm["bound_ms"], "bound_by": dm["bound_by"],
+         "library_ms": dm["library_ms"],
+         "shape": "deepseek-v2-lite-16b materialized MLA step: B=4 Hq=Hkv=16 "
+                  "D=192 Dv=128, ring 2081 (2065 filled)",
+         **{key: {k: decode[label][k] for k in
+                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for key, label in (("absorbed", "deepseek MLA decode absorbed"),
+                               ("qwen3-4b", "qwen3-4b decode"))}},
         {"name": "ssd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:74",
@@ -1269,9 +1723,17 @@ def main() -> int:
          "ms": gp["ms"], "plain_ms": gp["plain_ms"],
          "bound_ms": gp["bound_ms"], "bound_by": gp["bound_by"],
          "library_ms": None,
+         "launches_by_path": {
+             "phi3.5-moe (10 layers)": phi["launches"]["moe_gmm"],
+             "deepseek-v2-lite-16b": ds["launches"]["moe_gmm"],
+             "deepseek-v2-lite-16b absorbed decode":
+                 ds["absorbed_launches"]["moe_gmm"]},
          "shape": "phi3.5-moe prefill: [16, 1296, 4096], f=6400",
-         "decode": {k: gd[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by")}},
+         **{key: {k: gmm[label][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by")}
+            for key, label in (("decode", "decode"),
+                               ("deepseek_prefill", "deepseek prefill"),
+                               ("deepseek_decode", "deepseek decode"))}},
     ]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start

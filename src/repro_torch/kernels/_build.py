@@ -32,7 +32,7 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every entry point: (argtypes, restype)
 SIGNATURES = {
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
@@ -42,10 +42,15 @@ SIGNATURES = {
     # x, w, b, y, M, B, L, Cin, K, cin_g, Cout, groups, stride, lo,
     # L_out, stream
     "conv1d_stripe_f32": ([_P, _P, _P, _P] + [_I] * 11 + [_P], _I),
-    # q, k, v, qpos, kpos, out, B, S, T, Hq, Hkv, D, causal, window,
+    # q, k, v, qpos, kpos, out, B, S, T, Hq, Hkv, D, Dv, causal, window,
     # scale, stream
-    "flash_attention_f32": ([_P] * 6 + [_I] * 8 + [ctypes.c_float, _P],
+    "flash_attention_f32": ([_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
                             _I),
+    # q, k, v, qpos, kpos, part, ml (scratch), out, B, T, Hq, Hkv, D, Dv,
+    # k strides (b, t, h), v strides (b, t, h), causal, window, ts,
+    # n_split, v_in_k, scale, stream
+    "decode_attention_f32": ([_P] * 8 + [_I] * 6 + [_LL] * 6 + [_I] * 5
+                             + [ctypes.c_float, _P], _I),
     # x, dt, A, B, C, D, h0 (or null), y, hT, batch, S, H, P, G, N,
     # chunk, stream
     "ssd_f32": ([_P] * 9 + [_I] * 7 + [_P], _I),

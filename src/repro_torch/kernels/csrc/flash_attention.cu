@@ -1,4 +1,4 @@
-// Online-softmax grouped-query attention, fp32, for prefill and decode.
+// Online-softmax grouped-query attention, fp32, for prefill (S > 1).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention :98, pallas_call at :124).  There the grid is
@@ -8,7 +8,8 @@
 // skipped with @pl.when.  Blocks on Hopper run in parallel and in no
 // order, so here the k axis is a loop inside the block and m, l, acc live
 // in registers.  What it computes is repro_torch/kernels/ref.py
-// attention for Dv == D:
+// attention, with v of width Dv (equal to D, or 128 at D = 192 for the
+// materialized MLA prefill):
 //
 //   s[q, t] = scale * q[b, q, h, :] . k[b, t, h / g, :]
 //   visible = kpos[t] >= 0  &&  (!causal || kpos[t] <= qpos[q])
@@ -24,28 +25,20 @@
 // the mean over all T); no row of the LM path has one, since a query
 // always sees its own key.
 //
-// Two launch shapes of one entry point:
-//
-// * prefill (S > 1): one block of 256 threads per (q tile of 64 rows,
-//   query head, batch).  Q, K and V tiles are staged in shared memory
-//   with cp.async (rows padded to D + 4 floats, so the float4 reads of
-//   16 consecutive rows hit distinct banks); each thread holds a 4 x 4
-//   block of scores (rows 4*ty.., keys tx + 16*j) and a 4 x D/16 block
-//   of the accumulator.  Row max and sum are reduced over the 16 threads
-//   of a row with shuffles.  The probabilities go back through shared
-//   memory (over the K tile, which is dead by then) for the P @ V
-//   product.  A k tile is skipped, for the whole block, when no key of
-//   it is live for any row: no valid key, or (causal) its least valid
-//   position is past the block's last query, or (window) its greatest
-//   position is at least `window` behind the block's first query.
-//   Causal prefill thereby does about half the work of a dense sweep.
-// * decode (S == 1): one block of 128 threads per (batch, KV head, run
-//   of up to 8 query heads of that group), so each K/V tile is read once
-//   for the g heads that share it (the Pallas decode_attention design).
-//   Each thread scores one key of a 128-key tile against the g queries,
-//   a block reduction gives each head's tile max, and each thread then
-//   accumulates P @ V for its (head, column) pairs.  Tiles with no
-//   visible key are skipped.
+// One block of 256 threads per (q tile of 64 rows, query head, batch).
+// Q, K and V tiles are staged in shared memory with cp.async (rows padded
+// to D + 4 and Dv + 4 floats, so the float4 reads of 16 consecutive rows
+// hit distinct banks); each thread holds a 4 x 4 block of scores (rows
+// 4*ty.., keys tx + 16*j) and a 4 x Dv/16 block of the accumulator.  Row
+// max and sum are reduced over the 16 threads of a row with shuffles.
+// The probabilities go back through shared memory (over the K tile,
+// which is dead by then) for the P @ V product.  A k tile is skipped, for
+// the whole block, when no key of it is live for any row: no valid key,
+// or (causal) its least valid position is past the block's last query,
+// or (window) its greatest position is at least `window` behind the
+// block's first query.  Causal prefill thereby does about half the work
+// of a dense sweep.  A single decode token (S = 1) is the work of
+// decode_attention.cu, whose wrapper ops.attention calls instead.
 //
 // Ragged edges (S, T not multiples of the tile) are masked in the
 // kernel: K/V rows past T are zero-filled by cp.async and read as empty
@@ -59,13 +52,12 @@
 // a TF32 remainder, three products) to stay inside that, since plain
 // TF32 keeps 10 mantissa bits and moves a D = 128 dot product by ~1e-3.
 //
-// What bounds it on the card: at the qwen3-4b prefill shape (B=4,
-// S=T=2048, Hq=32, Hkv=8, D=128, causal) the operations: 4*D FLOPs per
-// visible (q, k) pair and head, 137 GFLOP per layer, 4.95 TFLOP over 36
-// layers, ~74 ms at the 67 TFLOP/s fp32 rate, against ~3.6 ms for the
-// bytes (q, k, v read once and o written once: 12.1 GB over 36 layers
-// at 3.35 TB/s).  At decode (S = 1, a 2081-slot ring) the bytes of the
-// K/V ring: ~68 MB a layer, ~2.45 GB and ~0.73 ms a step over 36 layers.
+// What bounds it on the card: the operations, 2 (D + Dv) FLOPs per
+// visible (q, k) pair and head.  At the qwen3-4b prefill shape (B=4,
+// S=T=2048, Hq=32, Hkv=8, D=128, causal) 137 GFLOP per layer, ~2.05 ms
+// at the 67 TFLOP/s fp32 rate, against ~0.1 ms for the bytes (q, k, v
+// read once and o written once); at the DeepSeek-V2-Lite MLA prefill
+// (Hq = Hkv = 16, D = 192, Dv = 128) 85.9 GFLOP, ~1.28 ms.
 #include <cuda_runtime.h>
 #include <climits>
 
@@ -137,23 +129,30 @@ __device__ __forceinline__ float comp(float4 a, int u) {
 // ------------------------------------------------------------- prefill
 constexpr int BQ = 64, BK = 64, NT = 256, PLD = BK + 4;
 
-template <int D>
+// Q and K tiles are [64][D + 4] floats, V [64][DV + 4]; at (192, 128)
+// they take 134 KB, so that instantiation runs one block an SM (and may
+// use up to 255 registers a thread) where the square ones run two.
+template <int D, int DV>
 struct PrefillSmem {
   static constexpr int LD = D + 4;
+  static constexpr int LDV = DV + 4;
   static constexpr int KREG = (BK * LD > BQ * PLD) ? BK * LD : BQ * PLD;
-  static constexpr int FLOATS = BQ * LD + KREG + BK * LD;
+  static constexpr int FLOATS = BQ * LD + KREG + BK * LDV;
   static constexpr int BYTES = FLOATS * 4;
+  static constexpr int MIN_BLOCKS = 2 * BYTES <= 232448 ? 2 : 1;
 };
 
-template <int D>
-__global__ void __launch_bounds__(NT, 2) flash_prefill_kernel(Params p) {
-  constexpr int LD = PrefillSmem<D>::LD;
-  constexpr int DC = D / 16;                // accumulator columns / thread
-  constexpr bool VEC = (DC % 4) == 0;       // float4 columns (D = 64, 128)
+template <int D, int DV>
+__global__ void __launch_bounds__(NT, (PrefillSmem<D, DV>::MIN_BLOCKS))
+    flash_prefill_kernel(Params p) {
+  constexpr int LD = PrefillSmem<D, DV>::LD;
+  constexpr int LDV = PrefillSmem<D, DV>::LDV;
+  constexpr int DC = DV / 16;               // accumulator columns / thread
+  constexpr bool VEC = (DC % 4) == 0;       // float4 columns (Dv = 64, 128)
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);      // [BQ][LD]
   float* Ks = Qs + BQ * LD;                         // [BK][LD], then P
-  float* Vs = Ks + PrefillSmem<D>::KREG;            // [BK][LD]
+  float* Vs = Ks + PrefillSmem<D, DV>::KREG;        // [BK][LDV]
   float* Ps = Ks;                                   // [BQ][PLD]
   __shared__ int qp_s[BQ];
   __shared__ int kp_s[BK];
@@ -163,10 +162,11 @@ __global__ void __launch_bounds__(NT, 2) flash_prefill_kernel(Params p) {
   const int s0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / p.g;
   const long long q_stride = static_cast<long long>(p.Hq) * D;
-  const long long kv_stride = static_cast<long long>(p.Hkv) * D;
+  const long long k_stride = static_cast<long long>(p.Hkv) * D;
+  const long long v_stride = static_cast<long long>(p.Hkv) * DV;
   const float* qb = p.q + (static_cast<long long>(b) * p.S * p.Hq + h) * D;
   const float* kb = p.k + (static_cast<long long>(b) * p.T * p.Hkv + kh) * D;
-  const float* vb = p.v + (static_cast<long long>(b) * p.T * p.Hkv + kh) * D;
+  const float* vb = p.v + (static_cast<long long>(b) * p.T * p.Hkv + kh) * DV;
 
   stage_rows<D, LD, BQ, NT>(Qs, qb, q_stride, s0, p.S);
   if (tid < BQ) qp_s[tid] = s0 + tid < p.S ? p.qpos[s0 + tid] : 0;
@@ -222,8 +222,8 @@ __global__ void __launch_bounds__(NT, 2) flash_prefill_kernel(Params p) {
     __syncthreads();
     if (!tile_live) continue;          // uniform over the block
 
-    stage_rows<D, LD, BK, NT>(Ks, kb, kv_stride, t0, p.T);
-    stage_rows<D, LD, BK, NT>(Vs, vb, kv_stride, t0, p.T);
+    stage_rows<D, LD, BK, NT>(Ks, kb, k_stride, t0, p.T);
+    stage_rows<DV, LDV, BK, NT>(Vs, vb, v_stride, t0, p.T);
     cp_async_wait_all();
     __syncthreads();
 
@@ -292,7 +292,7 @@ __global__ void __launch_bounds__(NT, 2) flash_prefill_kernel(Params p) {
         pv[i] = *reinterpret_cast<const float4*>(Ps + (4 * ty + i) * PLD + kk);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vrow = Vs + (kk + u) * LD;
+        const float* vrow = Vs + (kk + u) * LDV;
         float vv[DC];
         if constexpr (VEC) {
 #pragma unroll
@@ -327,7 +327,7 @@ __global__ void __launch_bounds__(NT, 2) flash_prefill_kernel(Params p) {
     const int s = s0 + 4 * ty + i;
     if (s >= p.S) continue;
     const float inv = 1.f / fmaxf(sum, 1e-30f);
-    float* orow = p.o + (static_cast<long long>(b * p.S + s) * p.Hq + h) * D;
+    float* orow = p.o + (static_cast<long long>(b * p.S + s) * p.Hq + h) * DV;
     if constexpr (VEC) {
 #pragma unroll
       for (int hh = 0; hh < DC / 4; ++hh)
@@ -341,166 +341,43 @@ __global__ void __launch_bounds__(NT, 2) flash_prefill_kernel(Params p) {
   }
 }
 
-// -------------------------------------------------------------- decode
-constexpr int DNT = 128, DBK = 128, GMAX = 8;
-
-template <int D>
-struct DecodeSmem {
-  static constexpr int LD = D + 4;
-  static constexpr int FLOATS = GMAX * D + 2 * DBK * LD + GMAX * DBK;
-  static constexpr int BYTES = FLOATS * 4;
-};
-
-template <int D>
-__global__ void __launch_bounds__(DNT) flash_decode_kernel(Params p) {
-  constexpr int LD = DecodeSmem<D>::LD;
-  constexpr int TPC = DNT / D;      // threads per output column (1..8)
-  constexpr int JR = (GMAX + TPC - 1) / TPC;  // heads per thread
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [GMAX][D]
-  float* Ks = Qs + GMAX * D;                     // [DBK][LD]
-  float* Vs = Ks + DBK * LD;                     // [DBK][LD]
-  float* Ps = Vs + DBK * LD;                     // [GMAX][DBK]
-  __shared__ float red[DNT / 32][GMAX];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int j0 = blockIdx.x * GMAX, kh = blockIdx.y, b = blockIdx.z;
-  const int G = min(GMAX, p.g - j0);             // heads in this block
-  const int h0 = kh * p.g + j0;                  // first query head
-  const long long kv_stride = static_cast<long long>(p.Hkv) * D;
-  const float* kb = p.k + (static_cast<long long>(b) * p.T * p.Hkv + kh) * D;
-  const float* vb = p.v + (static_cast<long long>(b) * p.T * p.Hkv + kh) * D;
-  const float* qb = p.q + (static_cast<long long>(b) * p.Hq + h0) * D;
-  const int q_pos = p.qpos[0];
-
-  for (int i = tid; i < GMAX * D; i += DNT)
-    Qs[i] = i < G * D ? qb[i] * p.scale_log2 : 0.f;
-
-  const int col = tid % D, jsub = tid / D;
-  float m[GMAX], l[JR], acc[JR];
-#pragma unroll
-  for (int j = 0; j < GMAX; ++j) m[j] = NEG_INF;
-#pragma unroll
-  for (int r = 0; r < JR; ++r) {
-    l[r] = 0.f;
-    acc[r] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < p.T; t0 += DBK) {
-    const int t = t0 + tid;
-    const int kp = t < p.T ? p.kpos[t] : -1;
-    const bool vis = visible(q_pos, kp, p);
-    // the barrier also orders the previous tile's reads before the loads
-    if (!__syncthreads_or(vis)) continue;
-    stage_rows<D, LD, DBK, DNT>(Ks, kb, kv_stride, t0, p.T);
-    stage_rows<D, LD, DBK, DNT>(Vs, vb, kv_stride, t0, p.T);
-    cp_async_wait_all();
-    __syncthreads();
-
-    float s[GMAX];
-#pragma unroll
-    for (int j = 0; j < GMAX; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(Ks + tid * LD + d);
-#pragma unroll
-      for (int j = 0; j < GMAX; ++j)
-        s[j] = fma4(s[j], *reinterpret_cast<const float4*>(Qs + j * D + d), kv);
-    }
-#pragma unroll
-    for (int j = 0; j < GMAX; ++j) {
-      if (!vis) s[j] = NEG_INF;
-      float mx = s[j];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      if (lane == 0) red[warp][j] = mx;
-    }
-    __syncthreads();
-    float alpha[GMAX];
-#pragma unroll
-    for (int j = 0; j < GMAX; ++j) {
-      float mx = red[0][j];
-#pragma unroll
-      for (int w = 1; w < DNT / 32; ++w) mx = fmaxf(mx, red[w][j]);
-      const float m_new = fmaxf(m[j], mx);
-      alpha[j] = exp2f(m[j] - m_new);
-      Ps[j * DBK + tid] = exp2f(s[j] - m_new);
-      m[j] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < JR; ++r) {
-      const int j = r * TPC + jsub;
-      if (j >= G) continue;
-      float a = acc[r] * alpha[j], sum = l[r] * alpha[j];
-      const float* prow = Ps + j * DBK;
-#pragma unroll 8
-      for (int u = 0; u < DBK; ++u) {
-        const float pu = prow[u];
-        sum += pu;
-        a = fmaf(pu, Vs[u * LD + col], a);
-      }
-      acc[r] = a;
-      l[r] = sum;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < JR; ++r) {
-    const int j = r * TPC + jsub;
-    if (j >= G) continue;
-    p.o[(static_cast<long long>(b) * p.Hq + h0 + j) * D + col] =
-        acc[r] / fmaxf(l[r], 1e-30f);
-  }
-}
-
 // more than 48 KB of dynamic shared memory must be allowed per kernel
 // (and per device, so it is set at every launch: ~1 us of host time)
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  cudaError_t e;
-  if (p.S == 1) {
-    e = cudaFuncSetAttribute(flash_decode_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             DecodeSmem<D>::BYTES);
-    if (e != cudaSuccess) return e;
-    dim3 grid((p.g + GMAX - 1) / GMAX, p.Hkv, p.B);
-    flash_decode_kernel<D><<<grid, DNT, DecodeSmem<D>::BYTES, stream>>>(p);
-  } else {
-    e = cudaFuncSetAttribute(flash_prefill_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             PrefillSmem<D>::BYTES);
-    if (e != cudaSuccess) return e;
-    dim3 grid((p.S + BQ - 1) / BQ, p.Hq, p.B);
-    flash_prefill_kernel<D><<<grid, NT, PrefillSmem<D>::BYTES, stream>>>(p);
-  }
+  constexpr int bytes = PrefillSmem<D, DV>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_prefill_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.S + BQ - 1) / BQ, p.Hq, p.B);
+  flash_prefill_kernel<D, DV><<<grid, NT, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, S, Hq, D], k and v [B, T, Hkv, D], qpos [S], kpos [T] int32,
-// out [B, S, Hq, D]; all f32, contiguous, 16-byte aligned (checked by the
-// caller, with Hkv | Hq, T > 0 and D in {16, 32, 64, 128}).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// q [B, S, Hq, D], k [B, T, Hkv, D], v [B, T, Hkv, Dv], qpos [S], kpos
+// [T] int32, out [B, S, Hq, Dv]; all f32, contiguous, 16-byte aligned
+// (checked by the caller, with Hkv | Hq, T > 0 and (D, Dv) one of the
+// instantiations below).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, const int* qpos,
                                    const int* kpos, float* out, int B, int S,
-                                   int T, int Hq, int Hkv, int D, int causal,
-                                   int window, float scale, void* stream) {
+                                   int T, int Hq, int Hkv, int D, int Dv,
+                                   int causal, int window, float scale,
+                                   void* stream) {
   if (B == 0 || S == 0) return 0;
   Params p{q, k, v, qpos, kpos, out, B, S, T, Hq, Hkv, Hq / Hkv,
            causal, window, scale * LOG2E};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  switch (D) {
-    case 16: e = launch<16>(p, st); break;
-    case 32: e = launch<32>(p, st); break;
-    case 64: e = launch<64>(p, st); break;
-    case 128: e = launch<128>(p, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
+  if (D == 16 && Dv == 16) e = launch<16, 16>(p, st);
+  else if (D == 32 && Dv == 32) e = launch<32, 32>(p, st);
+  else if (D == 64 && Dv == 64) e = launch<64, 64>(p, st);
+  else if (D == 128 && Dv == 128) e = launch<128, 128>(p, st);
+  else if (D == 192 && Dv == 128) e = launch<192, 128>(p, st);  // MLA
+  else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

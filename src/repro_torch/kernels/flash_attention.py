@@ -1,7 +1,9 @@
-"""CUDA ``flash_attention``: every attention of the LM path, prefill
-(``S > 1``) and decode (``S == 1``) (source: ``csrc/flash_attention.cu``;
-replaces ``repro/kernels/flash_attention.py:98``).  Computes
-``ref.attention`` for ``Dv == D`` within the port's tolerance."""
+"""CUDA ``flash_attention``: the prefill attention of the LM path
+(``S > 1``; source: ``csrc/flash_attention.cu``; replaces
+``repro/kernels/flash_attention.py:98``).  Computes ``ref.attention``
+within the port's tolerance, for ``Dv == D`` and for the materialized
+MLA prefill's ``(D, Dv) = (192, 128)``.  A single decode token goes to
+``kernels/decode_attention.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,16 +14,22 @@ from repro_torch.kernels import _build
 
 launches = _build.LaunchCount("flash_attention")
 
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+# the kernel's (D, Dv) instantiations
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     qpos: torch.Tensor, kpos: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q ``[B, S, Hq, D]``; k, v ``[B, T, Hkv, D]`` with ``Hkv | Hq``;
-    qpos ``[S]``, kpos ``[T]`` int32 (``kpos < 0`` = empty slot); all
-    float32, contiguous, on one card.  Returns ``[B, S, Hq, D]``."""
+    """q ``[B, S, Hq, D]`` with ``S > 1``; k ``[B, T, Hkv, D]`` and v
+    ``[B, T, Hkv, Dv]`` with ``Hkv | Hq``; qpos ``[S]``, kpos ``[T]``
+    int32 (``kpos < 0`` = empty slot); all float32, contiguous, on one
+    card.  Returns ``[B, S, Hq, Dv]``."""
+    if q.dim() == 4 and q.shape[1] == 1:
+        raise ValueError("flash_attention: one query token (S = 1) is a "
+                         "decode step: use kernels.decode_attention "
+                         "(ops.attention does)")
     dev = _build.require_cuda("flash_attention", q, k, v, qpos, kpos)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.float32 or t.dim() != 4:
@@ -32,16 +40,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "aligned")
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, T, Hkv, D) or v.shape != k.shape:
+    Dv = v.shape[3]
+    if tuple(k.shape) != (B, T, Hkv, D) or tuple(v.shape) != (B, T, Hkv, Dv):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
-                         "match (the kernel needs Dv == D)")
+                         "match")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: Hkv={Hkv} does not divide "
                          f"Hq={Hq}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in "
-                         f"{HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (D, Dv) = {(D, Dv)} "
+                         f"not in {HEAD_DIMS}")
     if T == 0:
         raise ValueError("flash_attention: no keys (T = 0)")
     for name, t, n in (("qpos", qpos, S), ("kpos", kpos, T)):
@@ -51,13 +60,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B > 65535 or Hq > 65535 or B * S >= 2 ** 31:
         raise ValueError(f"flash_attention: B={B}, Hq={Hq}, S={S} exceed "
                          "the kernel's grid or row index")
-    out = torch.empty_like(q)
+    out = torch.empty((B, S, Hq, Dv), dtype=q.dtype, device=dev)
     scale = float(scale if scale is not None else D ** -0.5)
     lib = _build.LIBRARY.get()
     rc = lib.flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-        kpos.data_ptr(), out.data_ptr(), B, S, T, Hq, Hkv, D, int(causal),
-        int(window), scale, _build.stream_of(q))
+        kpos.data_ptr(), out.data_ptr(), B, S, T, Hq, Hkv, D, Dv,
+        int(causal), int(window), scale, _build.stream_of(q))
     _build.check(rc, "flash_attention")
     launches.bump()
     return out

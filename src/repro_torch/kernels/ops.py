@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import conv1d_stripe as _conv
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
@@ -59,10 +60,13 @@ def window_gather(buf, patients, ends, valid, L: int, *,
 def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
               scale: Optional[float] = None, impl: Optional[str] = None,
               chunk: int = 0):
-    """GQA attention ``[B, S, Hq, D]`` (``repro/kernels/ops.py:29``).
-    The plain version is ``ref.attention``, or ``ref.attention_chunked``
-    when ``chunk`` is set; the CUDA kernel ignores ``chunk``, as the
-    reference's Pallas route does."""
+    """GQA attention ``[B, S, Hq, D]`` -> ``[B, S, Hq, Dv]``
+    (``repro/kernels/ops.py:29``).  The plain version is
+    ``ref.attention``, or ``ref.attention_chunked`` when ``chunk`` is
+    set.  On the card a prefill (``S > 1``) runs the CUDA
+    ``flash_attention`` and a decode step (``S == 1``) the CUDA
+    ``decode_attention``, with ``qpos`` left on the card; both ignore
+    ``chunk``, as the reference's Pallas route does."""
     if resolve(impl, q) == "torch":
         if chunk:
             return ref.attention_chunked(q, k, v, qpos, kpos, causal=causal,
@@ -70,8 +74,28 @@ def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
                                          chunk=chunk)
         return ref.attention(q, k, v, qpos, kpos, causal=causal,
                              window=window, scale=scale)
+    if q.shape[1] == 1:
+        out = _decode.decode_attention(q[:, 0], k, v, kpos, qpos,
+                                       window=window, scale=scale,
+                                       causal=causal)
+        return out[:, None]
     return _flash.flash_attention(q, k, v, qpos, kpos, causal=causal,
                                   window=window, scale=scale)
+
+
+def decode_attention(q, k, v, kpos, qpos, *, window: int = 0,
+                     scale: Optional[float] = None,
+                     impl: Optional[str] = None):
+    """One query token ``[B, Hq, D]`` against a ring cache ``[B, T, Hkv,
+    D]`` (v ``[B, T, Hkv, Dv]``), causal at ``qpos``
+    (``repro/kernels/ops.py:47``).  The plain version is
+    ``ref.decode_attention``; on the card the CUDA ``decode_attention``,
+    which also takes ``k`` and ``v`` rows that are strided views."""
+    if resolve(impl, q) == "torch":
+        return ref.decode_attention(q, k, v, kpos, qpos, window=window,
+                                    scale=scale)
+    return _decode.decode_attention(q, k, v, kpos, qpos, window=window,
+                                    scale=scale)
 
 
 def ssd(x, dt, A, B_, C, D, chunk: int, h0=None, *,

@@ -141,13 +141,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kpos: torch.Tensor, qpos: Union[int, torch.Tensor], *,
-                     window: int = 0) -> torch.Tensor:
-    """Single-token decode oracle (``repro.kernels.ref.decode_attention``).
-    q: ``[B, Hq, D]``; k, v: ``[B, T, Hkv, D]``; kpos ``[T]``; qpos the
-    query token's position (a scalar).  Returns ``[B, Hq, D]``."""
+                     window: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode oracle (``repro.kernels.ref.decode_attention``,
+    with the Pallas function's ``scale``).  q: ``[B, Hq, D]``; k:
+    ``[B, T, Hkv, D]``; v: ``[B, T, Hkv, Dv]`` (``Dv`` may differ from
+    ``D``, as in MLA); kpos ``[T]``; qpos the query token's position (a
+    scalar or a one-element tensor); ``scale`` defaults to ``D ** -0.5``.
+    A row with no visible key gets the mean of ``v`` (``attention``).
+    Returns ``[B, Hq, Dv]``."""
     qp = torch.as_tensor(qpos, dtype=torch.int32, device=q.device)
     out = attention(q[:, None], k, v, qp.reshape(1), kpos, causal=True,
-                    window=window)
+                    window=window, scale=scale)
     return out[:, 0]
 
 

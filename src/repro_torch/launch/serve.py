@@ -3,16 +3,20 @@ VLM, MoE or pure-SSM ``--arch`` (``repro/launch/serve.py:18``).
 
     python -m repro_torch.launch.serve --arch qwen3-4b        # on the card
     python -m repro_torch.launch.serve --arch mamba2-2.7b --prompt-len 2048
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch mamba2-2.7b-reduced --device cpu               # plain, CPU
+        --arch deepseek-v2-lite-16b-reduced --device cpu      # plain, CPU
 
 Random weights and prompt come from a seeded ``torch.Generator`` drawn on
 the target device.  Every kernel call goes through ``kernels.ops``: the
-CUDA kernels on the card (``flash_attention``, ``moe_gmm``, ``ssd``,
-``conv1d_stripe``), the plain versions on the CPU.  Prints the first
-generated tokens and one JSON line with the reference's keys
-(``prefill_s``, ``decode_tok_per_s``, ``decode_ms_per_token``); the
-card is synchronised before every clock read.  The kernels are built before the clock starts; ``prefill_s`` is
+CUDA kernels on the card (``flash_attention`` in prefill,
+``decode_attention`` at every decode step, ``moe_gmm``, ``ssd``,
+``conv1d_stripe``), the plain versions on the CPU.  MLA models are
+served in their materialized form, the reference launcher's default.
+Prints the first generated tokens and one JSON line with the
+reference's keys (``prefill_s``, ``decode_tok_per_s``,
+``decode_ms_per_token``); the card is synchronised before every clock
+read.  The kernels are built before the clock starts; ``prefill_s`` is
 the first prefill of the process, as in the reference (whose clock
 includes the jit compile).
 """

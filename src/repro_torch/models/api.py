@@ -7,8 +7,9 @@
     logits, cache = model.decode_step(params, cache, token, cfg, rt)
     cache = model.init_cache(cfg, rt, batch, seq_len, device)
 
-The port assembles the dense, VLM, MoE and pure-SSM families; hybrid
-and enc-dec are a later slice (ROADMAP §1 item 13) and raise
+The port assembles the dense, VLM, MoE and pure-SSM families, with GQA
+or MLA attention (``deepseek-v2-lite-16b`` is a MoE model with MLA);
+hybrid and enc-dec are a later slice (ROADMAP §1 item 13) and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations

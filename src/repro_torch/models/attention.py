@@ -1,16 +1,20 @@
-"""Grouped-query attention with ring-buffer decode caches
-(``repro/models/attention.py``, its GQA part).
+"""Attention variants with ring-buffer decode caches: GQA/MQA and MLA
+(DeepSeek-V2) (``repro/models/attention.py``, all but cross-attention).
 
 Cache convention (per layer; the transformer stacks these over L):
   gqa:  {"k": [B, M, kvH, hd], "v": [B, M, kvH, hd]}
+  mla:  {"ckv": [B, M, lora], "krope": [B, M, rope_dim]}
 plus a model-level {"pos": [M] int32 (-1 = empty), "idx": int}.
 M = min(seq_len, window or seq_len); decode writes slot idx % M.
 
 Unlike the reference, decode writes the new key and value into the
 cache tensors IN PLACE (and the position into ``cache_pos``): a cache is
-consumed by the step that advances it.  The mask (the reference's
-``_mask_bias`` here, a copy of its oracle's) has one home in the port,
-``kernels/ref.py``.  MLA and cross-attention come with their own slices
+consumed by the step that advances it.  An MLA cache's ``ckv`` and
+``krope`` are the two column views of one ``[.., M, lora + rope_dim]``
+buffer (``mla_cache``), so the absorbed decode reads a latent row whole
+(``latent_rows``) with no copy.  The mask (the reference's
+``_mask_bias``, a copy of its oracle's) has one home in the port,
+``kernels/ref.py``.  Cross-attention comes with the enc-dec slice
 (ROADMAP §1 item 13).
 """
 from __future__ import annotations
@@ -20,9 +24,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import (apply_rope, init_linear,
-                                       init_rmsnorm, linear, rms_norm)
+                                       init_rmsnorm, linear, rms_norm,
+                                       truncated_normal_init)
 
 
 def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype, device,
@@ -91,3 +96,138 @@ def gqa_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
     out = linear(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim))
     return out, new_kv
 
+
+
+# ===================================================================== MLA
+def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype, device,
+             lead=()):
+    m = cfg.mla
+    d, nq = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": init_linear(gen, d, nq * qk_dim, dtype, device, lead=lead),
+        "w_dkv": init_linear(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                             dtype, device, lead=lead),
+        "ckv_norm": init_rmsnorm(m.kv_lora_rank, dtype, device, lead),
+        "w_uk": truncated_normal_init(
+            gen, (m.kv_lora_rank, nq, m.qk_nope_head_dim), 1.0, dtype,
+            device, lead),
+        "w_uv": truncated_normal_init(
+            gen, (m.kv_lora_rank, nq, m.v_head_dim), 1.0, dtype, device,
+            lead),
+        "wo": init_linear(gen, nq * m.v_head_dim, d, dtype, device,
+                          lead=lead),
+    }
+
+
+def mla_cache(buf: torch.Tensor, lora: int) -> dict:
+    """An MLA cache over one ``[.., M, lora + rope_dim]`` buffer: its
+    ``ckv`` and ``krope`` column views."""
+    return {"ckv": buf[..., :lora], "krope": buf[..., lora:]}
+
+
+def latent_rows(cache: dict) -> torch.Tensor:
+    """The ``[.., M, lora + rope_dim]`` latent rows of an MLA cache: a
+    view of the buffer when ``ckv`` and ``krope`` are its adjacent column
+    views (``mla_cache``), else their concatenation."""
+    ckv, kr = cache["ckv"], cache["krope"]
+    lora = ckv.shape[-1]
+    if (ckv.stride() == kr.stride() and ckv.stride(-1) == 1
+            and ckv.shape[:-1] == kr.shape[:-1]
+            and ckv.untyped_storage().data_ptr()
+            == kr.untyped_storage().data_ptr()
+            and kr.data_ptr() == ckv.data_ptr() + lora * ckv.element_size()):
+        return ckv.as_strided(ckv.shape[:-1] + (lora + kr.shape[-1],),
+                              ckv.stride())
+    return torch.cat([ckv, kr], dim=-1)
+
+
+def _mla_compress(p, x, cfg: ArchConfig, positions):
+    """x -> (q_nope, q_rope, ckv, k_rope) for this segment."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    nope = m.qk_nope_head_dim
+    q = linear(p["wq"], x).reshape(B, S, cfg.n_heads,
+                                   nope + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    dkv = linear(p["w_dkv"], x)
+    ckv = rms_norm(dkv[..., :m.kv_lora_rank], p["ckv_norm"], cfg.norm_eps)
+    k_rope = dkv[..., m.kv_lora_rank:][:, :, None, :]      # [B,S,1,rope]
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
+              *, cache: Optional[dict] = None,
+              cache_pos: Optional[torch.Tensor] = None,
+              cache_idx: Optional[int] = None,
+              window: int = 0, causal: bool = True, absorbed: bool = False,
+              impl: Optional[str] = None, chunk: int = 0
+              ) -> Tuple[torch.Tensor, dict]:
+    """Multi-head Latent Attention.  The cache holds the COMPRESSED kv
+    (``kv_lora_rank + rope_dim`` per token, shared across heads); its
+    modes are ``gqa_apply``'s.
+
+    * ``absorbed=False`` (the default) materializes per-head K (nope |
+      rope, width 192 in DeepSeek-V2-Lite) and V (width 128) from the
+      latent with two plain matmuls, as the reference does outside any
+      kernel, then ``ops.attention``: ``flash_attention`` in prefill,
+      ``decode_attention`` (16 KV heads, g = 1) at a decode step.
+    * ``absorbed=True`` runs attention in the latent space, the
+      memory-optimal decode: ``q_nope`` is absorbed through ``w_uk``,
+      and a causal decode step is ``ops.decode_attention`` of ``[q_lat |
+      q_rope]`` (width lora + rope) against the cache's latent rows, one
+      KV head for all query heads, with v their first ``lora`` columns
+      (a view: the kernel reads each row once); ``w_uv`` then maps the
+      result out.  A full sequence (or a non-causal step) is the
+      reference's plain einsums: the JAX package has no kernel there
+      either, so this is its own path, not a fallback.
+    """
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, lora = cfg.n_heads, m.kv_lora_rank
+    q_nope, q_rope, ckv, k_rope = _mla_compress(p, x, cfg, positions)
+
+    if cache is None:
+        ckv_all, krope_all, kpos = ckv, k_rope, positions
+        new_cache = {"ckv": ckv, "krope": k_rope}
+    else:
+        M = cache["ckv"].shape[1]
+        slot = cache_idx % M
+        cache["ckv"][:, slot:slot + 1] = ckv
+        cache["krope"][:, slot:slot + 1] = k_rope
+        cache_pos[slot:slot + 1] = positions
+        ckv_all, krope_all, kpos = cache["ckv"], cache["krope"], cache_pos
+        new_cache = cache
+
+    scale = 1.0 / (m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5
+    if absorbed:
+        # q~ = q_nope absorbed through w_uk: [B, S, H, lora]
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope, p["w_uk"])
+        if cache is not None and causal:
+            lat = latent_rows(cache)[:, :, None]       # [B, M, 1, lora+rope]
+            qc = torch.cat([q_lat, q_rope], dim=-1)[:, 0]
+            v_lat = ops.decode_attention(qc, lat, lat[..., :lora], kpos,
+                                         positions, window=window,
+                                         scale=scale, impl=impl)[:, None]
+        else:
+            logits = (torch.einsum("bshl,btl->bhst", q_lat, ckv_all)
+                      + torch.einsum("bshr,btr->bhst", q_rope,
+                                     krope_all)) * scale
+            logits = logits + ref._mask_bias(positions, kpos, causal, window)
+            probs = torch.softmax(logits.float(), dim=-1).to(ckv_all.dtype)
+            v_lat = torch.einsum("bhst,btl->bshl", probs, ckv_all)
+        out = torch.einsum("bshl,lhv->bshv", v_lat, p["w_uv"]).to(x.dtype)
+    else:
+        T = ckv_all.shape[1]
+        k_nope = torch.einsum("btl,lhn->bthn", ckv_all, p["w_uk"])
+        v = torch.einsum("btl,lhv->bthv", ckv_all, p["w_uv"]).contiguous()
+        k_rope_b = krope_all[:, :, None, :].expand(B, T, H,
+                                                   m.qk_rope_head_dim)
+        k = torch.cat([k_nope, k_rope_b], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = ops.attention(q, k, v, positions, kpos, causal=causal,
+                            window=window, impl=impl, chunk=chunk)
+    out = linear(p["wo"], out.reshape(B, S, H * m.v_head_dim))
+    return out, new_cache

@@ -1,10 +1,9 @@
 """Runtime options, orthogonal to the architecture config
 (``repro/models/runtime.py``).
 
-The serving-path subset: ``remat``, ``scan_unroll``, ``moe_impl``,
-``mesh`` and ``absorbed_mla`` belong to training, the roofline probes,
-sharding and MLA, none of which the port carries yet (ROADMAP §1
-item 13).
+The serving-path subset: ``remat``, ``scan_unroll``, ``moe_impl`` and
+``mesh`` belong to training, the roofline probes and sharding, none of
+which the port carries yet (ROADMAP §1 items 7 and 13).
 """
 from __future__ import annotations
 
@@ -25,6 +24,10 @@ class RuntimeOptions:
                         versions), ``"cuda"`` (the kernels).
     window:             attention-window override; 0 keeps
                         ``cfg.sliding_window``.
+    absorbed_mla:       latent-space MLA attention (decode memory
+                        optimization): a decode step attends over the
+                        compressed cache itself (``models/attention.py``
+                        ``mla_apply``).
     capacity_factor:    MoE dispatch capacity factor: an expert takes
                         ``_capacity(S, top_k, E, capacity_factor)``
                         tokens of each sequence (``models/moe.py``);
@@ -37,6 +40,7 @@ class RuntimeOptions:
     kv_mult: int = 1
     impl: Optional[str] = None
     window: int = 0
+    absorbed_mla: bool = False
     capacity_factor: float = 1.25
     dtype: torch.dtype = torch.float32
     attn_chunk: int = 0

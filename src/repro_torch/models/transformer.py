@@ -9,16 +9,18 @@ index takes the place of ``lax.scan``.  Three modes:
   prefill(...)      full sequence, returns (last-token logits, decode cache)
   decode_step(...)  one token against the cache (ring buffer if windowed)
 
-Cache: {"segments": [per-segment stacked {"k", "v"} or mamba state
-{"conv_x", "conv_B", "conv_C", "ssm"}], "pos": [M] int32 ([1] of -1 when
-no segment holds K/V), "idx": int}.  ``decode_step`` advances the cache
-IN PLACE (the new key, value, position and mamba state go into the
-tensors it was given) and returns it with ``idx + 1``: a cache is never
-reused after it has been stepped.
+Cache: {"segments": [per-segment stacked {"k", "v"}, MLA {"ckv",
+"krope"} (two column views of one ``[L, B, M, lora + rope]`` buffer) or
+mamba state {"conv_x", "conv_B", "conv_C", "ssm"}], "pos": [M] int32
+([1] of -1 when no segment holds K/V), "idx": int}.  ``decode_step``
+advances the cache IN PLACE (the new key, value or latent row, the
+position and the mamba state go into the tensors it was given) and
+returns it with ``idx + 1``: a cache is never reused after it has been
+stepped.
 
-``forward`` returns the MoE load-balance loss summed over the MoE
-layers as its aux term.  MLA attention is a later slice of the port
-(ROADMAP §1 item 13) and raises ``NotImplementedError``.
+Attention is GQA or MLA by ``cfg.attn_type`` (MLA materialized, or
+absorbed with ``RuntimeOptions.absorbed_mla``).  ``forward`` returns the
+MoE load-balance loss summed over the MoE layers as its aux term.
 """
 from __future__ import annotations
 
@@ -56,25 +58,25 @@ def segments(cfg: ArchConfig) -> List[Tuple[str, int, int]]:
                      f"{cfg.family!r}")
 
 
-def _check_block(cfg: ArchConfig, btype: str) -> None:
-    if btype != "mamba" and cfg.attn_type == "mla":
-        raise NotImplementedError("mla is not ported yet; it comes with the "
-                                  "MLA slice (ROADMAP §1 item 13)")
+def _is_mla(cfg: ArchConfig, btype: str) -> bool:
+    return btype != "mamba" and cfg.attn_type == "mla"
 
 
 # ----------------------------------------------------------- block
 def _init_block(gen, cfg: ArchConfig, rt: RuntimeOptions, btype: str,
                 d_ff: int, device, n: int):
     """One segment's params, stacked over its ``n`` layers."""
-    _check_block(cfg, btype)
     lead = (n,)
     if btype == "mamba":
         return {"ln1": init_rmsnorm(cfg.d_model, rt.dtype, device, lead),
                 "mixer": ssm_mod.init_mamba2(gen, cfg, rt.dtype, device,
                                              lead)}
+    if _is_mla(cfg, btype):
+        a = attn.init_mla(gen, cfg, rt.dtype, device, lead)
+    else:
+        a = attn.init_gqa(gen, cfg, rt.dtype, device, rt.kv_mult, lead)
     p = {"ln1": init_rmsnorm(cfg.d_model, rt.dtype, device, lead),
-         "attn": attn.init_gqa(gen, cfg, rt.dtype, device, rt.kv_mult,
-                               lead),
+         "attn": a,
          "ln2": init_rmsnorm(cfg.d_model, rt.dtype, device, lead)}
     if btype == "attn_dense":
         p["mlp"] = init_swiglu(gen, cfg.d_model, d_ff, rt.dtype, device,
@@ -90,7 +92,6 @@ def _apply_block(p, x, btype: str, cfg: ArchConfig, rt: RuntimeOptions,
     """Returns (x, new_cache_l, aux); aux is the MoE load-balance loss,
     None for the other blocks (no tensor, so no launch, per layer).  A
     MoE block appends its input to ``moe_inputs`` when one is given."""
-    _check_block(cfg, btype)
     dec = mode == "decode"
     aux = None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -99,13 +100,17 @@ def _apply_block(p, x, btype: str, cfg: ArchConfig, rt: RuntimeOptions,
             p["mixer"], h, cfg, cache=cache_l if dec else None,
             return_cache=(mode == "prefill"), impl=rt.impl)
         return x + y, new_c, aux
-    y, new_c = attn.gqa_apply(
-        p["attn"], h, positions, cfg,
-        cache=cache_l if dec else None,
-        cache_pos=cache_pos if dec else None,
-        cache_idx=cache_idx if dec else None,
-        window=rt.eff_window(cfg), causal=True, kv_mult=rt.kv_mult,
-        impl=rt.impl, chunk=rt.attn_chunk)
+    kw = dict(cache=cache_l if dec else None,
+              cache_pos=cache_pos if dec else None,
+              cache_idx=cache_idx if dec else None,
+              window=rt.eff_window(cfg), causal=True, impl=rt.impl,
+              chunk=rt.attn_chunk)
+    if _is_mla(cfg, btype):
+        y, new_c = attn.mla_apply(p["attn"], h, positions, cfg,
+                                  absorbed=rt.absorbed_mla, **kw)
+    else:
+        y, new_c = attn.gqa_apply(p["attn"], h, positions, cfg,
+                                  kv_mult=rt.kv_mult, **kw)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if btype == "attn_dense":
@@ -145,9 +150,13 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, rt: RuntimeOptions,
 def _layer_cache_shape(cfg: ArchConfig, rt: RuntimeOptions, btype: str,
                        batch: int, M: int, device, n: int = 1):
     """One segment's empty cache, stacked over its ``n`` layers."""
-    _check_block(cfg, btype)
     if btype == "mamba":
         return ssm_mod.ssm_cache_init(cfg, batch, rt.dtype, device, (n,))
+    if _is_mla(cfg, btype):
+        m = cfg.mla
+        buf = torch.zeros((n, batch, M, m.kv_lora_rank + m.qk_rope_head_dim),
+                          dtype=rt.dtype, device=device)
+        return attn.mla_cache(buf, m.kv_lora_rank)
     nkv = cfg.n_kv_heads * rt.kv_mult
     shape = (n, batch, M, nkv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=rt.dtype, device=device),
@@ -220,15 +229,17 @@ def _embed_inputs(params, cfg, rt, tokens, prefix_embeds):
 
 
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
-            rt: RuntimeOptions, prefix_embeds: Optional[torch.Tensor] = None):
+            rt: RuntimeOptions, prefix_embeds: Optional[torch.Tensor] = None,
+            moe_inputs: Optional[list] = None):
     """Teacher-forced full-sequence logits.  tokens: ``[B, S_text]``;
     prefix_embeds: ``[B, P, frontend_dim]`` (VLM stub).  Returns
     (logits ``[B, S_total, V_padded]``, aux); aux is the MoE
-    load-balance loss summed over the layers (0 without MoE blocks)."""
+    load-balance loss summed over the layers (0 without MoE blocks).
+    ``moe_inputs`` as in ``prefill``."""
     x = _embed_inputs(params, cfg, rt, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, aux, _ = _run_segments(params, x, cfg, rt, positions, "train", None,
-                              None, None)
+                              None, None, moe_inputs)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if aux is None:
         aux = torch.zeros((), device=x.device)
@@ -282,6 +293,9 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
     for (btype, _, _), c in zip(segments(cfg), seg_caches):
         if btype == "mamba":                 # the state as it is
             trimmed.append(c)
+        elif _is_mla(cfg, btype):            # one latent buffer, two views
+            c, pos = fit_kv_cache({"lat": attn.latent_rows(c)}, S, M)
+            trimmed.append(attn.mla_cache(c["lat"], cfg.mla.kv_lora_rank))
         else:
             c, pos = fit_kv_cache(c, S, M)
             trimmed.append(c)

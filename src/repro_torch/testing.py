@@ -24,9 +24,14 @@ is held to ``max |y_kernel - y_plain| / RMS(y_plain) <= 1e-4``: the
 scale at which the next ``rms_norm`` reads it.  And since a relative
 difference of ~1e-6 can flip a top-k choice at a near-tie, routing is
 compared choice by choice; a flip is accepted only where the two
-experts' probabilities differ by less than 1e-5, and then the logits
-are reported instead of asserted.  The CPU tests, at reduced width,
-keep the elementwise rule.
+experts' probabilities differ by less than 1e-5.  Such a flip sends
+its token through another expert, so the two runs then differ by O(1)
+at that token in later layers and, through causal attention and the
+per-sequence capacity, at the later tokens of its sequence: flips
+there are downstream, reported and not held to the gap, and the
+logits of that sequence are reported instead of asserted (the other
+sequences, which share nothing with it, stay held to 1e-4).  The CPU
+tests, at reduced width, keep the elementwise rule.
 """
 from __future__ import annotations
 

@@ -8,9 +8,12 @@ on a machine that has only PyTorch:
 
 The conv cases are the ones ``tests/test_torch_kernels.py`` holds the
 plain versions to against the JAX package, and the mamba short conv
-(depthwise, K = 4, CAUSAL); the attention cases cover causal and
-windowed prefill, ragged ``S``/``T``, empty cache slots, the rolled
-ring of a windowed decode, and ``g`` in {1, 3, 4, 16}; the ``ssd``
+(depthwise, K = 4, CAUSAL); the ``flash_attention`` cases cover causal
+and windowed prefill, ragged ``S``/``T`` and the materialized MLA
+prefill (D = 192, Dv = 128); the ``decode_attention`` cases empty cache
+slots, a partly filled ring, the rolled ring of a windowed decode, ``g``
+in {1, 3, 4, 16, 48}, the materialized MLA step (192 / 128) and the
+absorbed one (576 / 512, v a strided view of k's rows); the ``ssd``
 cases ragged S, an initial state, G in {1, 2} and the served tile
 (chunk 128, P = 64, N = 128); the ``moe_gmm`` cases C and f off the
 tiles, at most 16 rows an expert (the decode tile) and more.
@@ -19,12 +22,17 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels import conv1d_stripe as kconv
+from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import moe_gmm as kgmm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd as kssd
 from repro_torch.configs.registry import get_config
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer
 from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.kernels import window_gather as kgather
@@ -130,11 +138,27 @@ ATTN_CASES = [
     (1, 64, 64, 2, 2, 32, False, 0, 64, 0),         # not causal
     (1, 33, 70, 6, 3, 16, True, 24, 70, 0),         # ragged S and T
     (2, 130, 130, 8, 2, 128, True, 0, 130, 0),      # D = 128, g = 4
-    (2, 1, 200, 12, 3, 128, True, 0, 150, 0),       # decode, empty tail
-    (1, 1, 77, 4, 4, 64, True, 0, 77, 0),           # decode, g = 1
-    (2, 1, 96, 15, 5, 64, True, 40, 96, 37),        # decode, rolled ring
-    (1, 1, 100, 16, 1, 32, True, 0, 90, 0),         # decode, g = 16 > 8
+    (2, 70, 70, 4, 4, 192, True, 0, 70, 0),         # MLA: Dv = 128
+    (1, 129, 129, 2, 2, 192, True, 48, 129, 0),     # MLA, window
 ]
+
+# decode steps (S = 1), the same fields; the first four were the S = 1
+# cases of the flash_attention launch that decode_attention replaces
+DECODE_CASES = [
+    (2, 1, 200, 12, 3, 128, True, 0, 150, 0),       # empty tail
+    (1, 1, 77, 4, 4, 64, True, 0, 77, 0),           # g = 1
+    (2, 1, 96, 15, 5, 64, True, 40, 96, 37),        # rolled ring
+    (1, 1, 100, 16, 1, 32, True, 0, 90, 0),         # g = 16
+    (2, 1, 300, 16, 16, 192, True, 0, 300, 0),      # MLA materialized
+    (2, 1, 2081, 16, 16, 192, True, 0, 150, 0),     # partly filled ring
+    (1, 1, 70, 48, 1, 64, True, 0, 70, 0),          # MQA, g = 48 > 16
+    (2, 1, 33, 8, 2, 16, False, 0, 33, 0),          # not causal
+]
+
+
+def _dv(D):
+    """v's width: 128 beside MLA's D = 192, else D."""
+    return 128 if D == 192 else D
 
 
 def attn_inputs(case, device, seed=0):
@@ -142,7 +166,7 @@ def attn_inputs(case, device, seed=0):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
     k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
-    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, _dv(D))).astype(np.float32)
     kpos = np.where(np.arange(T) < fill, np.arange(T), -1)
     kpos = np.roll(kpos, roll).astype(np.int32)
     end = max(fill, S)
@@ -176,6 +200,18 @@ def test_cuda_ops_attention_launches_the_kernel_only(cuda_device,
     for chunk in (0, 16):
         ops.attention(q, k, v, qpos, kpos, chunk=chunk)
     assert kflash.launches.value == before + 2
+    # one query token: decode_attention, qpos left on the card
+    monkeypatch.setattr(ref, "decode_attention", plain)
+    q, k, v, qpos, kpos = attn_inputs(DECODE_CASES[0], cuda_device)
+    before = (kflash.launches.value, kdecode.launches.value)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.attention(q, k, v, qpos, kpos)
+        ops.decode_attention(q[:, 0], k, v, kpos, qpos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (kflash.launches.value, kdecode.launches.value) == \
+        (before[0], before[1] + 2)
 
 
 @pytest.mark.cuda
@@ -189,20 +225,90 @@ def test_cuda_flash_attention_checks_its_inputs(cuda_device):
         kflash.flash_attention(q.transpose(1, 2), k, v, qpos, kpos)
     with pytest.raises(ValueError, match="CUDA"):
         kflash.flash_attention(q, k, v, qpos.cpu(), kpos)
+    with pytest.raises(ValueError, match="head dims"):
+        kflash.flash_attention(q, k, v[..., :16].contiguous(), qpos, kpos)
+    with pytest.raises(ValueError, match="decode_attention"):
+        kflash.flash_attention(q[:, :1].contiguous(), k, v, qpos[:1], kpos)
 
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_row_without_a_visible_key(cuda_device):
-    """The kernel skips every tile no row of its block can see, so a
-    decode row whose keys all lie in its future gets zeros; the plain
-    version gives it the mean of v over all T
+    """The kernel skips every tile no row of its block can see, so rows
+    whose keys all lie in their future get zeros; the plain version
+    gives them the mean of v over all T
     (``tests/test_torch_attention.py::test_rows_that_see_no_key``)."""
-    q, k, v, qpos, kpos = attn_inputs(ATTN_CASES[7], cuda_device)
+    q, k, v, qpos, kpos = attn_inputs(ATTN_CASES[0], cuda_device)
     kpos = kpos + 1000
     got = kflash.flash_attention(q, k, v, qpos, kpos)
     assert torch.equal(got, torch.zeros_like(got))
     assert_close(ref.attention(q, k, v, qpos, kpos)[0, 0, 0],
                  v[0, :, 0].mean(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_cuda_decode_attention_matches_plain(cuda_device, case):
+    causal, window = case[6], case[7]
+    q, k, v, qpos, kpos = attn_inputs(case, cuda_device)
+    before = kdecode.launches.value
+    got = kdecode.decode_attention(q[:, 0], k, v, kpos, qpos, window=window,
+                                   causal=causal)
+    torch.cuda.synchronize()
+    assert kdecode.launches.value == before + 1
+    assert_close(got, ref.attention(q, k, v, qpos, kpos, causal=causal,
+                                    window=window)[:, 0])
+    assert torch.equal(got, kdecode.decode_attention(          # fixed order
+        q[:, 0], k, v, kpos, qpos, window=window, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,fill", [(2081, 2065), (300, 37)])
+def test_cuda_decode_attention_absorbed_mla_step(cuda_device, T, fill):
+    """The absorbed MLA step: 16 query heads on one KV head, D = 576 (the
+    512 latent + 64 rope columns of a cache row) and v the first 512
+    columns of the same rows, a strided view; and a scale of its own."""
+    rng = np.random.default_rng(0)
+    lat = torch.from_numpy(rng.standard_normal((2, T, 576)).astype(
+        np.float32)).to(cuda_device)[:, :, None]
+    q = torch.from_numpy(rng.standard_normal((2, 16, 576)).astype(
+        np.float32)).to(cuda_device)
+    kpos = torch.from_numpy(np.where(np.arange(T) < fill, np.arange(T),
+                                     -1).astype(np.int32)).to(cuda_device)
+    qpos = torch.tensor([fill - 1], dtype=torch.int32, device=cuda_device)
+    v = lat[..., :512]
+    assert v.data_ptr() == lat.data_ptr() and not v.is_contiguous()
+    got = ops.decode_attention(q, lat, v, kpos, qpos, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (2, 16, 512)
+    assert_close(got, ref.decode_attention(q, lat, v.contiguous(), kpos,
+                                           qpos, scale=192 ** -0.5))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_row_without_a_visible_key(cuda_device):
+    """Every key of the ring lies in the query's future: zeros, as the
+    Pallas kernel gives; the plain version gives the mean of v."""
+    q, k, v, qpos, kpos = attn_inputs(DECODE_CASES[4], cuda_device)
+    kpos = kpos + 1000
+    got = ops.attention(q, k, v, qpos, kpos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+    assert_close(ref.attention(q, k, v, qpos, kpos)[0, 0, 0],
+                 v[0, :, 0].mean(0))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_checks_its_inputs(cuda_device):
+    q, k, v, qpos, kpos = attn_inputs(DECODE_CASES[0], cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        kdecode.decode_attention(q[:, 0], k, v, kpos.long(), qpos)
+    with pytest.raises(ValueError, match="divide"):
+        kdecode.decode_attention(q[:, 0, :5].contiguous(), k, v, kpos, qpos)
+    with pytest.raises(ValueError, match="rows"):
+        kdecode.decode_attention(q[:, 0], k[..., ::2], v, kpos, qpos)
+    with pytest.raises(ValueError, match="CUDA"):
+        kdecode.decode_attention(q[:, 0], k, v, kpos, qpos.cpu())
 
 
 @pytest.mark.cuda
@@ -367,3 +473,63 @@ def test_cuda_ssm_and_moe_lm_match_plain(cuda_device, arch):
         assert [c.value for c in counters] == before   # decode: no kernel
     np.testing.assert_allclose(lg.cpu().numpy(), full[:, 39].cpu().numpy(),
                                rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("absorbed", [False, True])
+def test_cuda_mla_lm_matches_plain_and_decode_never_syncs(cuda_device,
+                                                          absorbed):
+    """deepseek-v2-lite-16b-reduced with the full model's MLA widths
+    (kv_lora 512, qk 128 + 64, v 128): prefill (materialized: through
+    ``flash_attention`` at (192, 128)) within the tolerance of the plain
+    versions; decode
+    steps, materialized (192 / 128, g = 1) or absorbed (576 / 512, one
+    KV head), through ``decode_attention`` once a layer, against the
+    teacher-forced forward (2e-3) at a capacity that drops nothing; an
+    MLA decode step issues no host sync."""
+    cfg = dataclasses.replace(
+        get_config("deepseek-v2-lite-16b-reduced"), head_dim=192,
+        mla=MLAConfig(kv_lora_rank=512, q_lora_rank=0, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128))
+    rt = RuntimeOptions(capacity_factor=cfg.moe.n_routed_experts
+                        / cfg.moe.top_k, absorbed_mla=absorbed)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = transformer.init_lm(gen, cfg, rt, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device=cuda_device)
+    L = cfg.num_layers
+    before = (kflash.launches.value, kdecode.launches.value)
+    lg, cache = transformer.prefill(params, toks[:, :38], cfg, rt,
+                                    max_len=41)
+    # the absorbed form's full sequence is plain einsums, as the
+    # reference's: no kernel there
+    assert (kflash.launches.value, kdecode.launches.value) == \
+        (before[0] + (0 if absorbed else L), before[1])
+    plain, _ = transformer.prefill(params, toks[:, :38], cfg,
+                                   dataclasses.replace(rt, impl="torch"),
+                                   max_len=41)
+    assert_close(lg, plain)
+    full, _ = transformer.forward(params, toks, cfg, rt)
+    before = kdecode.launches.value
+    for t in range(2):
+        lg, cache = transformer.decode_step(params, cache, toks[:, 38 + t],
+                                            cfg, rt)
+    assert kdecode.launches.value == before + 2 * L
+    np.testing.assert_allclose(lg.cpu().numpy(), full[:, 39].cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+    # one more MLA step of layer 0 on its own (the MoE routing around it
+    # is not held to this)
+    p0 = transformer._layer(params["segments"][0], 0)["attn"]
+    c0 = transformer._layer(cache["segments"][0], 0)
+    h = torch.randn((2, 1, cfg.d_model), generator=gen, device=cuda_device)
+    pos = torch.full((1,), cache["idx"], dtype=torch.int32,
+                     device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = attn.mla_apply(p0, h, pos, cfg, cache=c0,
+                              cache_pos=cache["pos"],
+                              cache_idx=cache["idx"], absorbed=absorbed)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(y).all())

@@ -218,9 +218,11 @@ def test_later_families_name_their_slice():
             get_model(get_config(arch + "-reduced"))
     for arch in ("mamba2-2.7b", "phi3.5-moe-42b-a6.6b"):     # ported
         assert get_model(get_config(arch)).prefill is transformer.prefill
-    cfg = get_config("deepseek-v2-lite-16b-reduced")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_lm(torch.Generator(), cfg, RuntimeOptions(), "cpu")
+    cfg = get_config("deepseek-v2-lite-16b-reduced")           # MLA: ported
+    assert get_model(cfg).prefill is transformer.prefill
+    params = transformer.init_lm(torch.Generator(), cfg, RuntimeOptions(),
+                                 "cpu")
+    assert "w_uk" in params["segments"][0]["attn"]
 
 
 def test_serve_main_runs_on_the_cpu(capsys):
