@@ -53,8 +53,12 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``ssd`` (y and hT) and ``moe_gmm`` against their
-plain versions at the served shapes and at ragged ones, and the 3-D
-conv at the mamba short-conv shapes.  ``--profile`` adds one traced
+plain versions at the served shapes and at ragged ones (``moe_gmm``'s
+decode shapes both with every row filled and routed, as a served step
+fills them), and the 3-D conv at the mamba short-conv shapes; the convs
+and ``moe_gmm`` must be bitwise repeatable, the convs are timed on their
+direct path too, and the small conv calls get each call's device time
+(a CUDA graph) and host time beside the event-timed figure.  ``--profile`` adds one traced
 flush at P=8 and at P=64 after phase 3 and one traced prefill and
 decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe and deepseek-v2-lite
 (and one absorbed step) (``torch.profiler``): device time by kernel and
@@ -79,6 +83,7 @@ SEED = 0
 TOL = 1e-4                  # rtol = atol for float compute (testing.py)
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 FP32_FLOP_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_S = 495e12        # H100 SXM TF32 on the tensor cores, dense
 
 
 def _time_ms(torch, fn, reps: int = 5) -> float:
@@ -94,6 +99,42 @@ def _time_ms(torch, fn, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _host_ms(torch, fn, reps: int = 20) -> float:
+    """Host time of one call: the wall time of issuing ``reps`` calls
+    back to back (no sync between them; the queue stays short) over
+    ``reps``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / reps
+
+
+def _device_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call without the host: ``reps`` calls captured
+    in one CUDA graph, the graph's replay timed by CUDA events, over
+    ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del g
+    return ms
 
 
 def _conv_calls(spec, inner_width, conv_padding):
@@ -130,7 +171,13 @@ def _conv_bound(np, conv_padding, M, B, L, Cin, Cout, K, groups, stride,
 
 def phase_conv(torch, np, F, specs, record):
     """Both conv entry points against the plain version at every conv
-    shape of the full zoo; times summed over the calls of one flush."""
+    shape of the full zoo, bitwise repeatable; times summed over the calls
+    of one flush: the kernel as the wrapper routes it, its direct path
+    (the first version) on the same inputs, the plain version and one
+    cuDNN call (CUDA events over 5 calls; 20 for the per-member oracle
+    pass, M=1 and B=1, whose calls are host-bound).  For that pass also
+    each call's device time (a CUDA graph of 20 calls) and host time
+    (issuing 20 calls), for the kernel and for cuDNN."""
     from repro_torch.kernels import conv1d_stripe as kconv
     from repro_torch.kernels import ref
     from repro_torch.kernels.ref import conv_padding
@@ -149,9 +196,13 @@ def phase_conv(torch, np, F, specs, record):
     for name, M, B in (("conv1d_stripe_stacked", 3, 8),
                        ("conv1d_stripe_stacked", 3, 64),
                        ("conv1d_stripe", 1, 1)):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bytes_s": 0.0, "ops_s": 0.0, "bound_s": 0.0,
-               "max_abs_err": 0.0, "calls": 0}
+        split = name == "conv1d_stripe"
+        keys = ["ms", "direct_ms", "plain_ms", "library_ms"] + (
+            ["device_ms", "host_ms", "library_device_ms",
+             "library_host_ms"] if split else [])
+        tot = {k: 0.0 for k in keys}
+        tot.update({"bytes_s": 0.0, "ops_s": 0.0, "bound_s": 0.0,
+                    "max_abs_err": 0.0, "calls": 0, "calls_by_path": {}})
         rows = []
         for (L, Cin, Cout, K, groups, stride), n in sorted(count.items()):
             if name == "conv1d_stripe":
@@ -162,15 +213,21 @@ def phase_conv(torch, np, F, specs, record):
                             generator=gen) / math.sqrt(K * cin_g)
             b = torch.randn((M, Cout), device=dev, generator=gen)
             if name == "conv1d_stripe":
-                run = lambda: kconv.conv1d_stripe(x[0], w[0], b[0], stride,
-                                                  groups)
-                plain = lambda: ref.conv1d_stripe(x[0], w[0], b[0], stride,
-                                                  groups)
+                x0, w0, b0 = x[0], w[0], b[0]
+                run = lambda: kconv.conv1d_stripe(x0, w0, b0, stride, groups)
+                direct = lambda: kconv.conv1d_stripe(x0, w0, b0, stride,
+                                                     groups,
+                                                     force_direct=True)
+                plain = lambda: ref.conv1d_stripe(x0, w0, b0, stride, groups)
+                path = kconv.path(x0.shape, w0.shape, stride, groups)
             else:
                 run = lambda: kconv.conv1d_stripe_stacked(x, w, b, stride,
                                                           groups)
+                direct = lambda: kconv.conv1d_stripe_stacked(
+                    x, w, b, stride, groups, force_direct=True)
                 plain = lambda: ref.conv1d_stripe_stacked(x, w, b, stride,
                                                           groups)
+                path = kconv.path(x.shape, w.shape, stride, groups)
             y, r = run(), plain()
             torch.cuda.synchronize()
             err = float((y.reshape(r.shape) - r).abs().max())
@@ -178,8 +235,11 @@ def phase_conv(torch, np, F, specs, record):
                                   atol=TOL):
                 raise AssertionError(
                     f"{name} M={M} B={B} L={L} Cin={Cin} Cout={Cout} "
-                    f"K={K} groups={groups} stride={stride}: max abs err "
-                    f"{err} beyond rtol=atol={TOL}")
+                    f"K={K} groups={groups} stride={stride} ({path}): max "
+                    f"abs err {err} beyond rtol=atol={TOL}")
+            if not torch.equal(y, run()):
+                raise AssertionError(f"{name} M={M} B={B} L={L} Cin={Cin} "
+                                     f"Cout={Cout} ({path}): two runs differ")
             # library yardstick: one cuDNN grouped conv over the
             # pre-padded, channels-first member-folded input
             lo, hi, _ = conv_padding(L, K, stride, "SAME")
@@ -188,30 +248,48 @@ def phase_conv(torch, np, F, specs, record):
             wl = w.permute(0, 3, 2, 1).reshape(M * Cout, cin_g, K) \
                 .contiguous()
             lib = lambda: F.conv1d(xp, wl, None, stride, 0, 1, M * groups)
-            ms, pms, lms = (_time_ms(torch, run), _time_ms(torch, plain),
-                            _time_ms(torch, lib))
+            reps = 20 if split else 5       # B = 1: host-bound, noisy
+            t = {"ms": _time_ms(torch, run, reps),
+                 "direct_ms": _time_ms(torch, direct, reps),
+                 "plain_ms": _time_ms(torch, plain, reps),
+                 "library_ms": _time_ms(torch, lib, reps)}
+            if split:
+                t.update({"device_ms": _device_ms(torch, run),
+                          "host_ms": _host_ms(torch, run),
+                          "library_device_ms": _device_ms(torch, lib),
+                          "library_host_ms": _host_ms(torch, lib)})
             bs, os_ = _conv_bound(np, conv_padding, M, B, L, Cin, Cout, K,
                                   groups, stride)
             rows.append({"L": L, "Cin": Cin, "Cout": Cout, "K": K,
                          "groups": groups, "stride": stride, "calls": n,
-                         "ms": ms, "plain_ms": pms, "library_ms": lms,
+                         "path": path, **t,
                          "bound_ms": 1e3 * max(bs, os_),
                          "max_abs_err": err})
-            tot["ms"] += n * ms
-            tot["plain_ms"] += n * pms
-            tot["library_ms"] += n * lms
+            for k in keys:
+                tot[k] += n * t[k]
             tot["bytes_s"] += n * bs
             tot["ops_s"] += n * os_
             tot["bound_s"] += n * max(bs, os_)
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["calls"] += n
+            tot["calls_by_path"][path] = tot["calls_by_path"].get(path, 0) + n
             del x, w, b, y, r, xp, wl
         print(f"  {name:22s} M={M} B={B:2d}: {len(rows)} shapes, "
-              f"{tot['calls']} calls/flush, max abs err "
-              f"{tot['max_abs_err']:.3g}; per flush kernel "
-              f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-              f"cuDNN {tot['library_ms']:.3f} ms, bound "
+              f"{tot['calls']} calls/flush {tot['calls_by_path']}, max abs "
+              f"err {tot['max_abs_err']:.3g}, bitwise repeatable; per flush "
+              f"kernel {tot['ms']:.3f} ms (direct path {tot['direct_ms']:.3f}"
+              f"), plain {tot['plain_ms']:.3f} ms, cuDNN "
+              f"{tot['library_ms']:.3f} ms, bound "
               f"{1e3 * tot['bound_s']:.3f} ms", flush=True)
+        if split:
+            print(f"    per call (mean of {tot['calls']}): kernel device "
+                  f"{1e3 * tot['device_ms'] / tot['calls']:.2f} us, host "
+                  f"{1e3 * tot['host_ms'] / tot['calls']:.2f} us, events "
+                  f"{1e3 * tot['ms'] / tot['calls']:.2f} us; cuDNN device "
+                  f"{1e3 * tot['library_device_ms'] / tot['calls']:.2f} us, "
+                  f"host {1e3 * tot['library_host_ms'] / tot['calls']:.2f} "
+                  f"us, events {1e3 * tot['library_ms'] / tot['calls']:.2f} "
+                  f"us", flush=True)
         out[(name, B)] = tot
         record[f"{name}_M{M}_B{B}"] = {"total": tot, "shapes": rows}
     torch.cuda.empty_cache()
@@ -470,8 +548,11 @@ def phase_decode(torch, np, F, record):
 def phase_mamba_conv(torch, np, F, record):
     """The 3-D ``conv1d_stripe`` at the mamba2-2.7b short-conv shapes
     (depthwise, K = 4, CAUSAL: x at 5120 channels, B and C at 128;
-    B = 4, L = 2048) against the plain version, with its time, the plain
-    version's, one cuDNN depthwise ``F.conv1d``'s and the bound."""
+    B = 4, L = 2048) against the plain version, bitwise repeatable, with
+    its time (and its direct path's), the plain version's and one cuDNN
+    depthwise ``F.conv1d``'s (CUDA events over 20 calls), the device and
+    host time of one call of the kernel and of cuDNN (as ``phase_conv``)
+    and the bound."""
     from repro_torch.kernels import conv1d_stripe as kconv
     from repro_torch.kernels import ref
     from repro_torch.kernels.ref import conv_padding
@@ -485,6 +566,8 @@ def phase_mamba_conv(torch, np, F, record):
         w = torch.randn((K, 1, ch), device=dev, generator=gen) / math.sqrt(K)
         b = torch.randn((ch,), device=dev, generator=gen)
         run = lambda: kconv.conv1d_stripe(x, w, b, 1, ch, "CAUSAL")
+        direct = lambda: kconv.conv1d_stripe(x, w, b, 1, ch, "CAUSAL",
+                                             force_direct=True)
         plain = lambda: ref.conv1d_stripe(x, w, b, 1, ch, "CAUSAL")
         y, r = run(), plain()
         torch.cuda.synchronize()
@@ -492,25 +575,40 @@ def phase_mamba_conv(torch, np, F, record):
         if not torch.allclose(y, r, rtol=TOL, atol=TOL):
             raise AssertionError(f"conv1d_stripe mamba C={ch}: max abs err "
                                  f"{err} beyond rtol=atol={TOL}")
+        if not torch.equal(y, run()):
+            raise AssertionError(f"conv1d_stripe mamba C={ch}: two runs "
+                                 "differ")
         xp = F.pad(x.transpose(1, 2), (K - 1, 0)).contiguous()
         wl = w.permute(2, 1, 0).contiguous()
         lib = lambda: F.conv1d(xp, wl, b, 1, 0, 1, ch)
         bs, os_ = _conv_bound(np, conv_padding, 1, B, L, ch, ch, K, ch, 1,
                               "CAUSAL")
-        rec = {"B": B, "L": L, "C": ch, "K": K, "ms": _time_ms(torch, run),
-               "plain_ms": _time_ms(torch, plain),
-               "library_ms": _time_ms(torch, lib),
+        rec = {"B": B, "L": L, "C": ch, "K": K,
+               "path": kconv.path(x.shape, w.shape, 1, ch, "CAUSAL"),
+               "ms": _time_ms(torch, run, 20),
+               "direct_ms": _time_ms(torch, direct, 20),
+               "plain_ms": _time_ms(torch, plain, 20),
+               "library_ms": _time_ms(torch, lib, 20),
+               "device_ms": _device_ms(torch, run),
+               "host_ms": _host_ms(torch, run),
+               "library_device_ms": _device_ms(torch, lib),
+               "library_host_ms": _host_ms(torch, lib),
                "bound_ms": 1e3 * max(bs, os_),
                "bound_by": "operations" if os_ >= bs else "bytes",
                "max_abs_err": err}
         print(f"  conv1d_stripe mamba short conv [{B},{L},{ch}] K={K} "
-              f"depthwise CAUSAL: max abs err {err:.3g}; kernel "
-              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, cuDNN "
-              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']})", flush=True)
+              f"depthwise CAUSAL ({rec['path']}): max abs err {err:.3g}; "
+              f"kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}, "
+              f"host {rec['host_ms']:.4f}; direct path "
+              f"{rec['direct_ms']:.4f}), plain {rec['plain_ms']:.4f} ms, "
+              f"cuDNN {rec['library_ms']:.4f} ms (device "
+              f"{rec['library_device_ms']:.4f}, host "
+              f"{rec['library_host_ms']:.4f}), bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bound_by']})", flush=True)
         out[ch] = rec
         del x, w, b, y, r, xp, wl
     record["conv1d_stripe_mamba"] = out
+    torch.cuda.empty_cache()
     return out
 
 
@@ -587,32 +685,75 @@ def phase_ssd(torch, record):
     return out
 
 
+def _gmm_bound(E, C, d, f, experts, rows):
+    """(bytes s, fp32 CUDA-core s, 3xTF32 tensor-core s) of one
+    ``moe_gmm`` call: x read and y written once, the three weights of
+    the ``experts`` that hold a row read once; 6 d f FLOPs for each of
+    the ``rows`` that hold a value, on the CUDA cores at 67 TFLOP/s or
+    as three TF32 products at 495 TFLOP/s."""
+    nbytes = 4.0 * (2 * E * C * d + 3 * experts * d * f)
+    flops = 6.0 * rows * d * f
+    return (nbytes / HBM_BYTES_S, flops / FP32_FLOP_S,
+            3 * flops / TF32_FLOP_S)
+
+
 def phase_gmm(torch, record):
-    """``moe_gmm`` against the plain version (rtol = atol = 1e-4) at the
-    phi3.5-moe shapes: prefill (B = 4, prompt 2048: C = 324 a sequence,
-    [16, 1296, 4096]), decode (B = 4: [16, 16, 4096]); at the
-    deepseek-v2-lite shapes (64 experts of f = 1408, top-6: C = 244 a
-    sequence in prefill, [64, 976, 2048], and 6 at decode, [64, 24,
-    2048]); and a C and an f off the kernel's tiles ([4, 37, 4096],
-    f = 1000); inputs at unit
-    scale (x ~ N(0, 1), each weight ~ N(0, 1/fan-in of its contracted
-    axis)).  Bound: 6 E C d f FLOPs against the bytes of x, the three
-    weights and y."""
+    """``moe_gmm`` against the plain version (rtol = atol = 1e-4),
+    bitwise repeatable, at the phi3.5-moe shapes: prefill (B = 4, prompt
+    2048: C = 324 a sequence, [16, 1296, 4096], the tensor-core path),
+    decode (B = 4: [16, 16, 4096], the stream); at the deepseek-v2-lite
+    shapes (64 experts of f = 1408, top-6: C = 244 a sequence in prefill,
+    [64, 976, 2048], and 6 at decode, [64, 24, 2048]); and a C and an f
+    off the kernel's tiles ([4, 37, 4096], f = 1000).  The decode shapes
+    twice: every row of every expert filled (the worst case) and routed,
+    the buffer a served decode step builds (``moe.route`` with a seeded
+    router, then ``moe.dispatch``), where most experts hold no token.
+    Inputs at unit scale (x ~ N(0, 1), each weight ~ N(0, 1/fan-in of
+    its contracted axis)).  Bound (``_gmm_bound``): the larger of the
+    bytes and the 3xTF32 operations; the fp32 CUDA-core figure beside
+    it."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import moe_gmm as kgmm
     from repro_torch.kernels import ref
+    from repro_torch.models import moe as moe_mod
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    out = {}
-    for label, E, C, d, f in (("prefill", 16, 1296, 4096, 6400),
-                              ("decode", 16, 16, 4096, 6400),
-                              ("deepseek prefill", 64, 976, 2048, 1408),
-                              ("deepseek decode", 64, 24, 2048, 1408),
-                              ("ragged", 4, 37, 4096, 1000)):
-        x = torch.randn((E, C, d), device=dev, generator=gen)
-        wg = torch.randn((E, d, f), device=dev, generator=gen) / math.sqrt(d)
-        wu = torch.randn((E, d, f), device=dev, generator=gen) / math.sqrt(d)
-        wd = torch.randn((E, f, d), device=dev, generator=gen) / math.sqrt(f)
+    phi, ds = "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b"
+    out, wts = {}, None
+    for label, arch, E, C, d, f, routed in (
+            ("prefill", phi, 16, 1296, 4096, 6400, False),
+            ("decode", phi, 16, 16, 4096, 6400, False),
+            ("routed decode", phi, 16, 16, 4096, 6400, True),
+            ("deepseek prefill", ds, 64, 976, 2048, 1408, False),
+            ("deepseek decode", ds, 64, 24, 2048, 1408, False),
+            ("deepseek routed decode", ds, 64, 24, 2048, 1408, True),
+            ("ragged", None, 4, 37, 4096, 1000, False)):
+        if wts is None or wts[0] != (E, d, f):
+            wts = None
+            torch.cuda.empty_cache()
+            wts = ((E, d, f), [
+                torch.randn((E, d, f), device=dev, generator=gen)
+                / math.sqrt(d),
+                torch.randn((E, d, f), device=dev, generator=gen)
+                / math.sqrt(d),
+                torch.randn((E, f, d), device=dev, generator=gen)
+                / math.sqrt(f)])
+        wg, wu, wd = wts[1]
+        if routed:                  # a served decode step's buffer, B = 4
+            cfg = get_config(arch)
+            router = {"router": torch.randn((d, E), device=dev, generator=gen)
+                      / math.sqrt(d)}
+            xt = torch.randn((4, 1, d), device=dev, generator=gen)
+            r = moe_mod.route(router, xt, cfg, 1.25)
+            x = moe_mod.dispatch(xt, r, E).xe.contiguous()
+            if tuple(x.shape) != (E, C, d):
+                raise AssertionError(f"moe_gmm {label}: dispatched "
+                                     f"{tuple(x.shape)}, want {(E, C, d)}")
+        else:
+            x = torch.randn((E, C, d), device=dev, generator=gen)
+        full = (x != 0).any(-1)
+        experts, rows = int(full.any(-1).sum()), int(full.sum())
         run = lambda: kgmm.moe_gmm(x, wg, wu, wd)
         plain = lambda: ref.moe_gmm(x, wg, wu, wd)
         y, r = run(), plain()
@@ -621,21 +762,29 @@ def phase_gmm(torch, record):
         if not torch.allclose(y, r, rtol=TOL, atol=TOL):
             raise AssertionError(f"moe_gmm {label}: max abs err {err} beyond "
                                  f"rtol=atol={TOL}")
-        nbytes = 4.0 * (2 * E * C * d + 3 * E * d * f)
-        bs, os_ = nbytes / HBM_BYTES_S, 6.0 * E * C * d * f / FP32_FLOP_S
+        if not torch.equal(y, run()):
+            raise AssertionError(f"moe_gmm {label}: two runs differ")
+        bs, fp32_s, tc_s = _gmm_bound(E, C, d, f, experts, rows)
         reps = 3 if "prefill" in label else 10
-        rec = {"E": E, "C": C, "d": d, "f": f,
+        rec = {"E": E, "C": C, "d": d, "f": f, "path": kgmm.path(C),
+               "occupied_experts": experts, "occupied_rows": rows,
                "ms": _time_ms(torch, run, reps),
                "plain_ms": _time_ms(torch, plain, reps),
-               "bound_ms": 1e3 * max(bs, os_),
-               "bound_by": "operations" if os_ >= bs else "bytes",
+               "bound_ms": 1e3 * max(bs, tc_s),
+               "bound_by": "operations" if tc_s >= bs else "bytes",
+               "bytes_ms": 1e3 * bs, "fp32_ops_ms": 1e3 * fp32_s,
+               "tf32x3_ops_ms": 1e3 * tc_s,
                "max_abs_err": err, "y_abs_max": float(r.abs().max())}
-        print(f"  moe_gmm {label:16s} [{E},{C},{d}] f={f}: max abs err "
-              f"{err:.3g}; kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']})", flush=True)
+        print(f"  moe_gmm {label:22s} [{E},{C},{d}] f={f} ({rec['path']}; "
+              f"{experts} experts, {rows} rows hold a token): max abs err "
+              f"{err:.3g}, bitwise repeatable; kernel {rec['ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bound_by']}; bytes {rec['bytes_ms']:.4f}, 3xTF32 "
+              f"{rec['tf32x3_ops_ms']:.4f}, fp32 CUDA cores "
+              f"{rec['fp32_ops_ms']:.4f})", flush=True)
         out[label] = rec
-        del x, wg, wu, wd, y, r
+        del x, y, r, full
+    del wts
     record["moe_gmm"] = out
     torch.cuda.empty_cache()
     return out
@@ -1651,9 +1800,14 @@ def main() -> int:
         "ecg per-member oracle query": launches["conv1d_stripe"],
         "mamba2-2.7b": mamba["launches"]["conv1d_stripe"]}
     conv_m1["mamba_short_conv"] = {
-        f"[4,2048,{c}]": {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")}
+        f"[4,2048,{c}]": {k: v[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path",
+            "device_ms", "host_ms", "library_device_ms", "library_host_ms",
+            "direct_ms")}
         for c, v in mconv.items()}
+    conv_m1.update({k: conv[("conv1d_stripe", 1)][k] for k in (
+        "device_ms", "host_ms", "library_device_ms", "library_host_ms",
+        "direct_ms", "calls_by_path")})
     sv, gp = ssd["served"], gmm["prefill"]
     kernels = [
         {"name": "window_gather", "route": "cuda",
@@ -1729,11 +1883,17 @@ def main() -> int:
              "deepseek-v2-lite-16b absorbed decode":
                  ds["absorbed_launches"]["moe_gmm"]},
          "shape": "phi3.5-moe prefill: [16, 1296, 4096], f=6400",
-         **{key: {k: gmm[label][k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "bound_by")}
+         "path": gp["path"], "tf32x3_ops_ms": gp["tf32x3_ops_ms"],
+         "fp32_ops_ms": gp["fp32_ops_ms"],
+         **{key: {k: gmm[label][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "path",
+             "occupied_experts", "bytes_ms", "tf32x3_ops_ms", "fp32_ops_ms")}
             for key, label in (("decode", "decode"),
+                               ("routed_decode", "routed decode"),
                                ("deepseek_prefill", "deepseek prefill"),
-                               ("deepseek_decode", "deepseek decode"))}},
+                               ("deepseek_decode", "deepseek decode"),
+                               ("deepseek_routed_decode",
+                                "deepseek routed decode"))}},
     ]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start

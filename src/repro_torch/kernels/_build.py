@@ -39,9 +39,12 @@ SIGNATURES = {
     # buf, patients, ends, valid, out, N, C, cap, P, L, stream
     "window_gather_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                           _I),
-    # x, w, b, y, M, B, L, Cin, K, cin_g, Cout, groups, stride, lo,
-    # L_out, stream
-    "conv1d_stripe_f32": ([_P, _P, _P, _P] + [_I] * 11 + [_P], _I),
+    # x, w, b, y, dims (int[11]: M, B, L, Cin, K, cin_g, Cout, groups,
+    # stride, lo, L_out), force_direct, stream
+    "conv1d_stripe_f32": ([_P] * 4 + [ctypes.POINTER(_I), _I, _P], _I),
+    # M, B, Cin, K, cin_g, Cout, groups, stride -> 0 direct, 1 depthwise,
+    # 2 tiled
+    "conv1d_stripe_path": ([_I] * 8, _I),
     # q, k, v, qpos, kpos, out, B, S, T, Hq, Hkv, D, Dv, causal, window,
     # scale, stream
     "flash_attention_f32": ([_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
@@ -54,8 +57,9 @@ SIGNATURES = {
     # x, dt, A, B, C, D, h0 (or null), y, hT, batch, S, H, P, G, N,
     # chunk, stream
     "ssd_f32": ([_P] * 9 + [_I] * 7 + [_P], _I),
-    # xbuf, w_gate, w_up, w_down, hbuf (scratch), y, E, C, d, f, stream
-    "moe_gmm_f32": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    # xbuf, w_gate, w_up, w_down, hbuf (scratch), rows (int32 scratch,
+    # streaming path only, else null), y, E, C, d, f, stream
+    "moe_gmm_f32": ([_P] * 7 + [_I] * 4 + [_P], _I),
 }
 
 
@@ -172,8 +176,10 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The raw ``cudaStream_t`` of the current stream on ``t``'s card."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s card
+    (the integer ``torch.cuda.current_stream(t.device).cuda_stream``
+    gives, without building a ``Stream`` object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

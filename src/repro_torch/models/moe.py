@@ -100,6 +100,33 @@ def route(p, x: torch.Tensor, cfg: ArchConfig,
                    aux.float(), C)
 
 
+class Dispatch(NamedTuple):
+    """Where each routed choice sits in the capacity buffer."""
+    xe: torch.Tensor          # [E, B*C, d] the buffer ``moe_gmm`` takes
+    bidx: torch.Tensor        # [B, S*K] each choice's sequence
+    expert: torch.Tensor      # [B, S*K] its expert
+    slot: torch.Tensor        # [B, S*K] its row in the expert (0 if dropped)
+
+
+def dispatch(x: torch.Tensor, r: Routing, E: int) -> Dispatch:
+    """Scatter the tokens of ``x [B, S, d]`` into the per-sequence
+    capacity buffer ``[B, E, C, d]`` (a dropped choice adds zeros into
+    slot 0 of its expert, as ``.at[e, s].add`` does) and lay it out as
+    ``[E, B·C, d]``.  Rows no choice reached are zeros."""
+    B, S, d = x.shape
+    K = r.top_e.shape[-1]
+    flat_e = r.top_e.reshape(B, S * K)
+    slot = torch.where(r.keep, r.pos_in_e, torch.zeros_like(r.pos_in_e))
+    tok = torch.arange(S, device=x.device).repeat_interleave(K)  # [S*K]
+    bidx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
+    vals = x[:, tok] * r.keep[..., None].to(x.dtype)            # [B,SK,d]
+    xbuf = torch.zeros((B, E, r.capacity, d), dtype=x.dtype,
+                       device=x.device)
+    xbuf.index_put_((bidx, flat_e, slot), vals, accumulate=True)
+    xe = xbuf.transpose(0, 1).reshape(E, B * r.capacity, d)
+    return Dispatch(xe, bidx, flat_e, slot)
+
+
 def _moe_dispatch_compute(p, x: torch.Tensor, cfg: ArchConfig,
                           capacity_factor: float, impl: Optional[str]
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,24 +135,15 @@ def _moe_dispatch_compute(p, x: torch.Tensor, cfg: ArchConfig,
     B, S, d = x.shape
     E, K = cfg.moe.n_routed_experts, cfg.moe.top_k
     r = route(p, x, cfg, capacity_factor)
-    C = r.capacity
-    flat_e = r.top_e.reshape(B, S * K)
-    slot = torch.where(r.keep, r.pos_in_e, torch.zeros_like(r.pos_in_e))
-
-    # scatter tokens into [B, E, C, d]; a dropped choice adds zeros
-    tok = torch.arange(S, device=x.device).repeat_interleave(K)  # [S*K]
-    bidx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
-    vals = x[:, tok] * r.keep[..., None].to(x.dtype)            # [B,SK,d]
-    xbuf = torch.zeros((B, E, C, d), dtype=x.dtype, device=x.device)
-    xbuf.index_put_((bidx, flat_e, slot), vals, accumulate=True)
+    dp = dispatch(x, r, E)
 
     # expert compute (grouped matmul kernel)
-    xe = xbuf.transpose(0, 1).reshape(E, B * C, d)
-    ye = ops.moe_gmm(xe, p["w_gate"], p["w_up"], p["w_down"], impl=impl)
-    ybuf = ye.reshape(E, B, C, d).transpose(0, 1)               # [B,E,C,d]
+    ye = ops.moe_gmm(dp.xe, p["w_gate"], p["w_up"], p["w_down"], impl=impl)
+    ybuf = ye.reshape(E, B, r.capacity, d).transpose(0, 1)      # [B,E,C,d]
 
     # gather back and combine
-    y_choice = ybuf[bidx, flat_e, slot] * r.keep[..., None].to(ybuf.dtype)
+    y_choice = ybuf[dp.bidx, dp.expert, dp.slot] \
+        * r.keep[..., None].to(ybuf.dtype)
     y_choice = y_choice.reshape(B, S, K, d)
     y = (y_choice * r.top_p[..., None].to(y_choice.dtype)).sum(dim=2)
     return y, r.aux

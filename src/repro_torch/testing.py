@@ -38,6 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import ref
+
 RTOL = 1e-4
 ATOL = 1e-4
 
@@ -61,3 +63,66 @@ def assert_bitwise(got, want, what: str = "") -> None:
     assert g.shape == w.shape and g.dtype == w.dtype, \
         (what, g.shape, g.dtype, w.shape, w.dtype)
     assert np.array_equal(g, w), what
+
+
+# ------------------------------------------------- plain models of kernels
+def round_tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (10 mantissa bits), returned as float32: round to
+    nearest with ties away from zero, as ``cvt.rna.tf32.f32`` does (add
+    half a TF32 ulp to the magnitude's bits, then drop the 13 low bits;
+    inf stays inf, NaN stays NaN)."""
+    bits = a.contiguous().view(torch.int32)
+    out = torch.bitwise_and(bits + 0x1000, ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(a), a, out)
+
+
+def truncate_tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by dropping the 13 low bits: what the tensor cores
+    read of a float32 operand that is not already TF32."""
+    bits = a.contiguous().view(torch.int32)
+    return torch.bitwise_and(bits, ~0x1FFF).view(torch.float32)
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
+                passes: int = 3) -> torch.Tensor:
+    """``a @ b`` in float32 as the tensor cores take it.  ``passes=1``:
+    both operands rounded to TF32 (plain TF32).  ``passes=3`` (3xTF32,
+    the split of ``csrc/moe_gmm.cu``): each operand split into
+    ``big = round_tf32(v)`` and ``small = v - big``, of which the tensor
+    cores read ``truncate_tf32(small)``, and ``small·big + big·small +
+    big·big`` summed in float32 (a product of two TF32 values is exact
+    in float32)."""
+    if passes == 1:
+        return round_tf32(a) @ round_tf32(b)
+    if passes != 3:
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    a_big, b_big = round_tf32(a), round_tf32(b)
+    a_small, b_small = truncate_tf32(a - a_big), truncate_tf32(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def moe_gmm_tf32(xbuf: torch.Tensor, w_gate: torch.Tensor,
+                 w_up: torch.Tensor, w_down: torch.Tensor,
+                 passes: int = 3) -> torch.Tensor:
+    """``ref.moe_gmm`` with its three products taken by
+    ``matmul_tf32``: a plain model of the tensor-core path of the CUDA
+    ``moe_gmm`` (the SwiGLU in float32 between them)."""
+    gate = matmul_tf32(xbuf, w_gate, passes)
+    up = matmul_tf32(xbuf, w_up, passes)
+    h = gate / (1 + torch.exp(-gate)) * up
+    return matmul_tf32(h, w_down, passes)
+
+
+def moe_gmm_occupied_rows(xbuf: torch.Tensor, w_gate: torch.Tensor,
+                          w_up: torch.Tensor,
+                          w_down: torch.Tensor) -> torch.Tensor:
+    """A plain model of the streaming path of the CUDA ``moe_gmm``: each
+    expert computes only its rows that hold a nonzero value; every other
+    row of y is zero, and an expert with no such row reads no weight."""
+    y = torch.zeros_like(xbuf)
+    for e in range(xbuf.shape[0]):
+        rows = (xbuf[e] != 0).any(-1).nonzero()[:, 0]
+        if len(rows):
+            y[e, rows] = ref.moe_gmm(xbuf[e:e + 1, rows], w_gate[e:e + 1],
+                                     w_up[e:e + 1], w_down[e:e + 1])[0]
+    return y

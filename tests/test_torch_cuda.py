@@ -16,7 +16,14 @@ in {1, 3, 4, 16, 48}, the materialized MLA step (192 / 128) and the
 absorbed one (576 / 512, v a strided view of k's rows); the ``ssd``
 cases ragged S, an initial state, G in {1, 2} and the served tile
 (chunk 128, P = 64, N = 128); the ``moe_gmm`` cases C and f off the
-tiles, at most 16 rows an expert (the decode tile) and more.
+tiles, at most 16 rows an expert (the decode tile) and more.  Each path
+of the redesigned kernels has its own cases, each also repeat-equal: the
+conv's depthwise path (stride 1 and 2, SAME and CAUSAL, B = 1 and 4, L
+up to 7500) and tiled path (the ECG zoo's 1x1, stem and grouped shapes
+at B = 1), both also equal to the direct path; ``moe_gmm``'s stream
+(whole experts empty, some rows, all rows, C = 16, 24 and 64, an empty
+expert whose weights hold NaN) and its tensor-core path (C, d and f off
+its tiles).
 """
 import numpy as np
 import pytest
@@ -106,6 +113,76 @@ def test_cuda_window_gather_bitwise(cuda_device, case):
            for a in (pts, ends, valid)]
     assert_bitwise(kgather.window_gather(buf, *idx, L),
                    ref.window_gather(buf, *idx, L))
+
+
+# (B, L, C, K, stride, padding): depthwise (groups = C), the mamba short
+# conv and the ECG stripes whose inner width is their cardinality, C off
+# the float4 width included
+DEPTHWISE_CASES = [
+    (1, 7500, 8, 7, 2, "SAME"),
+    (4, 7500, 8, 7, 1, "SAME"),
+    (4, 2048, 128, 4, 1, "CAUSAL"),
+    (1, 2048, 5120, 4, 1, "CAUSAL"),
+    (1, 33, 12, 7, 2, "CAUSAL"),
+    (4, 301, 6, 4, 2, "SAME"),
+    (1, 15, 8, 7, 1, "SAME"),
+]
+
+# (L, Cin, Cout, K, groups, stride): B = 1 as the per-member oracle query
+# calls them: 1x1 reduce/expand, the stem, grouped stripes cin_g 2, 4, 8
+TILED_CASES = [
+    (1875, 64, 128, 1, 1, 1),
+    (3750, 128, 64, 1, 1, 1),
+    (15, 128, 64, 1, 1, 1),
+    (469, 8, 16, 1, 1, 1),
+    (7500, 1, 128, 7, 1, 2),
+    (7500, 1, 8, 7, 1, 2),
+    (1875, 16, 16, 7, 8, 2),
+    (938, 32, 32, 7, 8, 1),
+    (3750, 64, 64, 7, 8, 2),
+    (41, 16, 12, 7, 4, 1),                  # cout_g 3: groups split a quad
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DEPTHWISE_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_cuda_conv_depthwise_path(cuda_device, case):
+    """The depthwise path against the plain version, repeat-equal, and
+    equal to the direct path (the same summation order)."""
+    B, L, C, K, stride, padding = case
+    x, w, b = _conv_inputs((B, L, C, C, K, C, stride, padding), 1,
+                           cuda_device)
+    x, w, b = x[0], w[0], b[0]
+    assert kconv.path(x.shape, w.shape, stride, C, padding) == "depthwise"
+    got = kconv.conv1d_stripe(x, w, b, stride, C, padding)
+    assert_close(got, ref.conv1d_stripe(x, w, b, stride, C, padding))
+    assert torch.equal(got, kconv.conv1d_stripe(x, w, b, stride, C,
+                                                 padding))
+    assert torch.equal(got, kconv.conv1d_stripe(x, w, b, stride, C, padding,
+                                                 force_direct=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TILED_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_cuda_conv_tiled_path_at_b1(cuda_device, case):
+    """The tiled path at B = 1 (and stacked, M = 3) against the plain
+    version, repeat-equal, and equal to the direct path."""
+    L, Cin, Cout, K, groups, stride = case
+    x, w, b = _conv_inputs((1, L, Cin, Cout, K, groups, stride, "SAME"), 3,
+                           cuda_device)
+    assert kconv.path(x[0].shape, w[0].shape, stride, groups) == "tiled"
+    got = kconv.conv1d_stripe(x[0], w[0], b[0], stride, groups)
+    assert_close(got, ref.conv1d_stripe(x[0], w[0], b[0], stride, groups))
+    assert torch.equal(got, kconv.conv1d_stripe(x[0], w[0], b[0], stride,
+                                                 groups))
+    assert torch.equal(got, kconv.conv1d_stripe(x[0], w[0], b[0], stride,
+                                                 groups, force_direct=True))
+    got = kconv.conv1d_stripe_stacked(x, w, b, stride, groups)
+    assert_close(got, ref.conv1d_stripe_stacked(x, w, b, stride, groups))
+    assert torch.equal(got, kconv.conv1d_stripe_stacked(
+        x, w, b, stride, groups, force_direct=True))
 
 
 @pytest.mark.cuda
@@ -411,6 +488,98 @@ def test_cuda_moe_gmm_matches_plain(cuda_device, case):
     assert torch.equal(got, kgmm.moe_gmm(x, wg, wu, wd))
     with pytest.raises(ValueError, match="match"):
         kgmm.moe_gmm(x, wg, wu, wd[:, :, :-1].contiguous())
+
+
+def _gmm_weights(E, d, f, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+        rng.standard_normal((E, d, f)) / d ** 0.5,
+        rng.standard_normal((E, d, f)) / d ** 0.5,
+        rng.standard_normal((E, f, d)) / f ** 0.5)]
+
+
+# (label, E, C, d, f, empty experts, rows filled an occupied expert):
+# the streaming path (C <= 64); d and f off 4 take its 4-byte copies
+STREAM_CASES = [
+    ("whole experts empty", 8, 16, 256, 200, (0, 2, 3, 6), None),
+    ("some rows", 6, 24, 128, 96, (), (0, 5, 23)),
+    ("one row each", 16, 16, 512, 640, (1, 4), (7,)),
+    ("all rows C=16", 4, 16, 256, 320, (), None),
+    ("all rows C=24", 4, 24, 192, 136, (), None),
+    ("all rows C=64", 2, 64, 128, 72, (), None),
+    ("d and f off 4", 3, 24, 24, 50, (1,), (2, 3, 17)),
+    ("every expert empty", 4, 16, 64, 32, (0, 1, 2, 3), None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STREAM_CASES, ids=lambda c: c[0])
+def test_cuda_moe_gmm_stream_path(cuda_device, case):
+    _, E, C, d, f, empty, filled = case
+    assert kgmm.path(C) == "stream"
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((E, C, d)).astype(np.float32)
+    if filled is not None:
+        keep = np.zeros(C, bool)
+        keep[list(filled)] = True
+        x[:, ~keep] = 0.0
+    x[list(empty)] = 0.0
+    x = torch.from_numpy(x).to(cuda_device)
+    wg, wu, wd = _gmm_weights(E, d, f, cuda_device)
+    before = kgmm.launches.value
+    got = kgmm.moe_gmm(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert kgmm.launches.value == before + 1
+    assert_close(got, ref.moe_gmm(x, wg, wu, wd))
+    empty_rows = ~(x != 0).any(-1)
+    if bool(empty_rows.any()):
+        assert float(got[empty_rows].abs().max()) == 0.0
+    assert torch.equal(got, kgmm.moe_gmm(x, wg, wu, wd))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gmm_empty_expert_with_nan_weights_gives_zeros(
+        cuda_device):
+    """A difference by design: an expert that holds no token reads no
+    weight, so its rows come back zero where the plain version gives
+    NaN (``tests/test_torch_precision.py`` models the same)."""
+    E, C, d, f = 4, 16, 128, 96
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (E, C, d)).astype(np.float32)).to(cuda_device)
+    x[1] = 0.0
+    wg, wu, wd = _gmm_weights(E, d, f, cuda_device)
+    for w in (wg, wu, wd):
+        w[1] = float("nan")
+    got = kgmm.moe_gmm(x, wg, wu, wd)
+    plain = ref.moe_gmm(x, wg, wu, wd)
+    assert bool(torch.isnan(plain[1]).all())
+    assert float(got[1].abs().max()) == 0.0
+    assert_close(got[[0, 2, 3]], plain[[0, 2, 3]])
+    assert torch.equal(got, kgmm.moe_gmm(x, wg, wu, wd))
+
+
+# (E, C, d, f): the tensor-core path (C > 64) with C, d and f off its
+# 128-row, 64/128-column and 32-deep tiles (d, f off 4: 4-byte copies),
+# and the served contractions (d = 4096, f = 6400): a sum kept in the
+# tensor cores' accumulator over all of K drifts beyond 1e-4 there
+TC_CASES = [(2, 130, 72, 200), (2, 100, 24, 50), (1, 300, 136, 520),
+            (3, 65, 260, 33), (1, 257, 1000, 100), (1, 200, 4096, 640),
+            (1, 96, 512, 6400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_cuda_moe_gmm_tensor_core_path(cuda_device, case):
+    E, C, d, f = case
+    assert kgmm.path(C) == "tensor_cores"
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (E, C, d)).astype(np.float32)).to(cuda_device)
+    wg, wu, wd = _gmm_weights(E, d, f, cuda_device)
+    got = kgmm.moe_gmm(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert_close(got, ref.moe_gmm(x, wg, wu, wd))
+    assert torch.equal(got, kgmm.moe_gmm(x, wg, wu, wd))
 
 
 @pytest.mark.cuda

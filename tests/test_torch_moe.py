@@ -162,6 +162,33 @@ def test_routing_and_dispatch_identical_to_jax(arch, cf, skew,
     assert_close(aux, aux_w, "aux")
 
 
+# (arch, S, B): a decode step and a prefill
+DISPATCH_CASES = [(ARCH, 1, 4), (ARCH, 24, 3),
+                  ("deepseek-v2-lite-16b-reduced", 1, 4),
+                  ("deepseek-v2-lite-16b-reduced", 24, 3)]
+
+
+@pytest.mark.parametrize("arch,S,B", DISPATCH_CASES)
+def test_dispatch_helper_builds_the_buffer_moe_gmm_receives(arch, S, B,
+                                                            monkeypatch):
+    """``moe.dispatch`` (shared by the layer and ``chip_smoke.py``'s
+    routed decode shapes) gives, bitwise, the ``[E, B·C, d]`` buffer that
+    ``moe_gmm`` receives in the port's layer and in the JAX package's."""
+    cfg_j, p_j, cfg, p = _moe_params(arch)
+    x = np.random.default_rng(S).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    r = moe.route(p, torch.from_numpy(x), cfg, 1.25)
+    dp = moe.dispatch(torch.from_numpy(x), r, cfg.moe.n_routed_experts)
+    assert tuple(dp.xe.shape) == (cfg.moe.n_routed_experts,
+                                  B * r.capacity, cfg.d_model)
+    seen_j = _capture(jmoe, monkeypatch)
+    seen = _capture(moe, monkeypatch)
+    jmoe.moe_apply(p_j, jnp.asarray(x), cfg_j, capacity_factor=1.25)
+    moe.moe_apply(p, torch.from_numpy(x), cfg, capacity_factor=1.25)
+    assert_bitwise(dp.xe.numpy(), seen[0], "port layer's buffer")
+    assert_bitwise(dp.xe.numpy(), seen_j[0], "JAX package's buffer")
+
+
 def _lm():
     cfg_j, rt_j = j_get_config(ARCH), JRuntimeOptions()
     params_j = j_get_model(cfg_j).init(KEY, cfg_j, rt_j)
