@@ -55,14 +55,16 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
 Phase 2 also holds ``ssd`` (y and hT) and ``moe_gmm`` against their
 plain versions at the served shapes and at ragged ones (``moe_gmm``'s
 decode shapes both with every row filled and routed, as a served step
-fills them), and the 3-D conv at the mamba short-conv shapes; the convs
-and ``moe_gmm`` must be bitwise repeatable, the convs are timed on their
-direct path too, and the small conv calls get each call's device time
-(a CUDA graph) and host time beside the event-timed figure.  ``--profile`` adds one traced
-flush at P=8 and at P=64 after phase 3 and one traced prefill and
-decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe and deepseek-v2-lite
-(and one absorbed step) (``torch.profiler``): device time by kernel and
-the card's idle share.
+fills them), and the 3-D conv at the mamba short-conv shapes; the convs,
+``decode_attention``, ``ssd`` and ``moe_gmm`` must be bitwise
+repeatable, the convs are timed on their direct path too, and the small
+conv calls, every ``decode_attention`` shape and ``ssd`` get each call's
+device time (a CUDA graph) and host time beside the event-timed figure
+(``decode_attention`` and ``ssd`` with their plan and scratch bytes).
+``--profile`` adds one traced flush at P=8 and at P=64 after phase 3 and
+one traced prefill and decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe
+and deepseek-v2-lite (and one absorbed step) (``torch.profiler``):
+device time by kernel and the card's idle share.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Details (per-shape timings, the nvcc log) go to
@@ -469,9 +471,14 @@ def phase_decode(torch, np, F, record):
     """``decode_attention`` against the plain version (rtol = atol =
     1e-4) at the LM path's decode steps (``_decode_cases``), the absorbed
     step on strided views of one latent buffer; a query with no visible
-    key must give zeros.  With its time, the plain version's, one
-    ``F.scaled_dot_product_attention`` call's (same mask, ``enable_gqa``)
-    and the bound (``_attn_bound``, the latent rows counted once)."""
+    key must give zeros; every case bitwise repeatable.  With the path
+    and plan (pieces, ring depth, scratch bytes) the wrapper ran
+    (``plan_of``), its time, one call's device time (a CUDA graph of 20
+    calls) and host time (issuing 20 calls), the plain version's time,
+    one ``F.scaled_dot_product_attention`` call's (same mask,
+    ``enable_gqa``) and the bound (``_attn_bound``, the latent rows
+    counted once).  A shape on the tensor cores is also run and timed
+    on the CUDA-core path, with that path's own plan (not counted)."""
     from repro_torch.kernels import decode_attention as kdecode
     from repro_torch.kernels import ref
 
@@ -509,11 +516,14 @@ def phase_decode(torch, np, F, record):
                                  + ("" if seen else " (want zeros)"))
         if not torch.equal(y, run()):
             raise AssertionError(f"decode_attention {label}: two runs differ")
+        plan = kdecode.plan_of(q, k, v, kp, qp, window=window)
+        ts, n_split = plan.ts, plan.n_split
         rec = {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D, "Dv": Dv,
                "window": window, "absorbed": absorbed,
                "visible_keys": int(vis.sum()), "max_abs_err": err,
-               "plan": dict(zip(("ts", "n_split"), kdecode.split_plan(
-                   B, Hkv, Hq // Hkv, T, kdecode._sm_count(0))))}
+               "path": plan.path,
+               "plan": {"ts": ts, "n_split": n_split, "slots": plan.slots,
+                        "scratch_bytes": 4 * plan.scratch}}
         if seen:
             qt = q[:, :, None].contiguous()
             kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
@@ -523,17 +533,46 @@ def phase_decode(torch, np, F, record):
             bs, os_, _ = _attn_bound(B, Hq, Hkv, D, Dv, vis, 1, T,
                                      v_in_k=absorbed)
             rec.update({"ms": _time_ms(torch, run, 20),
+                        "device_ms": _device_ms(torch, run),
+                        "host_ms": _host_ms(torch, run),
                         "plain_ms": _time_ms(torch, plain, 20),
                         "library_ms": _time_ms(torch, lib, 20),
                         "bound_ms": 1e3 * max(bs, os_),
                         "bound_by": "operations" if os_ >= bs else "bytes",
                         "library_max_abs_err": lib_err})
+            if plan.path == "tensor_cores" and seen:
+                # the CUDA-core path on the same inputs, its own plan
+                key = kdecode._key(q, k, v, kp, qp, window, True, 0)
+                alt = kdecode._plan(key, q, k, v, kp, qp, "cuda_cores")
+                run_alt = lambda: kdecode._launch(alt, q, k, v, kp, qp,
+                                                  scale)
+                y_alt = run_alt()
+                alt_err = float((y_alt - want).abs().max())
+                if not torch.allclose(y_alt, want, rtol=TOL, atol=TOL):
+                    raise AssertionError(
+                        f"decode_attention {label} on the CUDA cores: max "
+                        f"abs err {alt_err} beyond rtol=atol={TOL}")
+                rec["cuda_cores"] = {
+                    "max_abs_err": alt_err, "ms": _time_ms(torch, run_alt, 20),
+                    "device_ms": _device_ms(torch, run_alt),
+                    "plan": {"ts": alt.ts, "n_split": alt.n_split,
+                             "slots": alt.slots,
+                             "scratch_bytes": 4 * alt.scratch}}
+                c = rec["cuda_cores"]
+                print(f"  decode_attention {label:38s} on the CUDA cores: "
+                      f"max abs err {alt_err:.3g}; kernel {c['ms']:.4f} ms "
+                      f"(device {c['device_ms']:.4f}); {alt.n_split} pieces "
+                      f"of {alt.ts} keys, ring {alt.slots}", flush=True)
             print(f"  decode_attention {label:38s} B={B} T={T} Hq={Hq} "
-                  f"Hkv={Hkv} D={D} Dv={Dv}: max abs err {err:.3g}; kernel "
-                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
+                  f"Hkv={Hkv} D={D} Dv={Dv}: max abs err {err:.3g}, "
+                  f"bitwise repeatable; kernel {rec['ms']:.4f} ms (device "
+                  f"{rec['device_ms']:.4f}, host {rec['host_ms']:.4f}), "
+                  f"plain {rec['plain_ms']:.4f} ms, SDPA "
                   f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
-                  f"ms ({rec['bound_by']}); {rec['plan']['n_split']} pieces "
-                  f"of {rec['plan']['ts']} keys", flush=True)
+                  f"ms ({rec['bound_by']}); {rec['path']}, {n_split} pieces "
+                  f"of {ts} keys, ring {plan.slots}, "
+                  f"{rec['plan']['scratch_bytes']} bytes of scratch",
+                  flush=True)
             del qt, kt, vt
         else:
             print(f"  decode_attention {label:38s}: zeros, as designed (the "
@@ -613,11 +652,12 @@ def phase_mamba_conv(torch, np, F, record):
 
 
 def _ssd_bound(B, S, H, P, G, N, chunk, with_h0):
-    """(bytes s, operations s) of one ``ssd`` call: x, dt, B, C, A, D
-    (and h0) read once, y and hT written once; per chunk of r rows the
-    causal half of C B^T and of W x (the r (r + 1) / 2 pairs j <= i:
-    r (r + 1) N and r (r + 1) P FLOPs), 2 r N P (C h^T) and 2 r P N (the
-    state update)."""
+    """(bytes s, fp32 operations s, 3xTF32 operations s) of one ``ssd``
+    call: x, dt, B, C, A, D (and h0) read once, y and hT written once;
+    per chunk of r rows the causal half of C B^T and of W x (the r (r +
+    1) / 2 pairs j <= i: r (r + 1) N and r (r + 1) P FLOPs), 2 r N P (C
+    h^T) and 2 r P N (the state update), on the CUDA cores at 67
+    TFLOP/s or as three TF32 products at 495 TFLOP/s."""
     nbytes = 4.0 * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N
                     + 2 * H + (2 if with_h0 else 1) * B * H * P * N)
     flops = 0.0
@@ -625,11 +665,13 @@ def _ssd_bound(B, S, H, P, G, N, chunk, with_h0):
         r = min(chunk, S - s0)
         flops += r * (r + 1.0) * (N + P) + 4.0 * r * N * P
     flops *= B * H
-    return nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return (nbytes / HBM_BYTES_S, flops / FP32_FLOP_S,
+            3 * flops / TF32_FLOP_S)
 
 
 def phase_ssd(torch, record):
-    """``ssd`` against the plain version (y and hT, rtol = atol = 1e-4)
+    """``ssd`` against the plain version (y and hT, rtol = atol = 1e-4,
+    bitwise repeatable)
     at the mamba2-2.7b prefill shape (B = 4, S = 2048, H = 80, P = 64,
     G = 1, N = 128, chunk 128), at a ragged S = 2000, with a random h0,
     and at G = 2; inputs at unit scale (x, h0 ~ N(0, 1); B ~ N(0, 1),
@@ -665,19 +707,32 @@ def phase_ssd(torch, record):
                 and torch.allclose(hT, hr, rtol=TOL, atol=TOL)):
             raise AssertionError(f"ssd {label}: max abs err {err} beyond "
                                  f"rtol=atol={TOL}")
-        bs, os_ = _ssd_bound(B, S, H, P, G, N, chunk, with_h0)
+        y2, h2 = run()
+        if not (torch.equal(y, y2) and torch.equal(hT, h2)):
+            raise AssertionError(f"ssd {label}: two runs differ")
+        bs, os_, tc = _ssd_bound(B, S, H, P, G, N, chunk, with_h0)
         rec = {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
                "chunk": chunk, "h0": with_h0,
                "y_abs_max": float(yr.abs().max()),
-               "ms": _time_ms(torch, run), "plain_ms": _time_ms(torch, plain),
+               "ms": _time_ms(torch, run),
+               "device_ms": _device_ms(torch, run, 5),
+               "host_ms": _host_ms(torch, run, 5),
+               "plain_ms": _time_ms(torch, plain),
                "bound_ms": 1e3 * max(bs, os_),
                "bound_by": "operations" if os_ >= bs else "bytes",
+               "bytes_ms": 1e3 * bs, "fp32_ops_ms": 1e3 * os_,
+               "tf32x3_ops_ms": 1e3 * tc,
+               "scratch_bytes": 4 * kssd.scratch_floats(B, S, H, G, P, N,
+                                                        chunk),
                "max_abs_err": err}
         print(f"  ssd {label:14s} B={B} S={S} H={H} P={P} G={G} N={N}: max "
-              f"abs err {err:.3g} (|y| up to {rec['y_abs_max']:.3g}); "
-              f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
-              flush=True)
+              f"abs err {err:.3g} (|y| up to {rec['y_abs_max']:.3g}), "
+              f"bitwise repeatable; kernel {rec['ms']:.4f} ms (device "
+              f"{rec['device_ms']:.4f}, host {rec['host_ms']:.4f}), plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}; bytes {rec['bytes_ms']:.4f}, 3xTF32 "
+              f"{rec['tf32x3_ops_ms']:.4f}); 4 launches, "
+              f"{rec['scratch_bytes']} bytes of scratch", flush=True)
         out[label] = rec
         del x, dt, Bm, Cm, h0, y, hT, yr, hr
     record["ssd"] = out
@@ -836,8 +891,8 @@ def phase_llm_profile(torch, r, max_len, absorbed_ms=None):
             low = name.lower()
             key = ("flash_attention" if "flash" in name else
                    "decode_attention" if "decode_split" in name
-                   or "decode_combine" in name else
-                   "ssd" if "ssd_chunk" in name else
+                   or "decode_mma" in name or "decode_combine" in name else
+                   "ssd" if "ssd_" in name else
                    "moe_gmm" if "gmm_kernel" in name else
                    "conv1d_stripe" if "conv1d_stripe" in name else
                    "gemm" if "gemm" in low or "gemv" in low else "other")
@@ -1852,13 +1907,17 @@ def main() -> int:
          "max_abs_err": max(v["max_abs_err"] for v in decode.values()),
          "ms": dm["ms"], "plain_ms": dm["plain_ms"],
          "bound_ms": dm["bound_ms"], "bound_by": dm["bound_by"],
-         "library_ms": dm["library_ms"],
+         "library_ms": dm["library_ms"], "device_ms": dm["device_ms"],
+         "host_ms": dm["host_ms"], "path": dm["path"], "plan": dm["plan"],
          "shape": "deepseek-v2-lite-16b materialized MLA step: B=4 Hq=Hkv=16 "
                   "D=192 Dv=128, ring 2081 (2065 filled)",
          **{key: {k: decode[label][k] for k in
-                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "device_ms", "host_ms", "path", "plan", "cuda_cores")
+                  if k in decode[label]}
             for key, label in (("absorbed", "deepseek MLA decode absorbed"),
-                               ("qwen3-4b", "qwen3-4b decode"))}},
+                               ("qwen3-4b", "qwen3-4b decode"),
+                               ("smollm-360m", "smollm-360m decode"))}},
         {"name": "ssd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:74",
@@ -1866,7 +1925,9 @@ def main() -> int:
          "max_abs_err": max(v["max_abs_err"] for v in ssd.values()),
          "ms": sv["ms"], "plain_ms": sv["plain_ms"],
          "bound_ms": sv["bound_ms"], "bound_by": sv["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "device_ms": sv["device_ms"],
+         "host_ms": sv["host_ms"], "tf32x3_ops_ms": sv["tf32x3_ops_ms"],
+         "scratch_bytes": sv["scratch_bytes"],
          "shape": "mamba2-2.7b prefill: B=4 S=2048 H=80 P=64 G=1 N=128 "
                   "chunk 128"},
         {"name": "moe_gmm", "route": "cuda",

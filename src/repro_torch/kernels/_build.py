@@ -49,14 +49,17 @@ SIGNATURES = {
     # scale, stream
     "flash_attention_f32": ([_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
                             _I),
-    # q, k, v, qpos, kpos, part, ml (scratch), out, B, T, Hq, Hkv, D, Dv,
-    # k strides (b, t, h), v strides (b, t, h), causal, window, ts,
-    # n_split, v_in_k, scale, stream
-    "decode_attention_f32": ([_P] * 8 + [_I] * 6 + [_LL] * 6 + [_I] * 5
-                             + [ctypes.c_float, _P], _I),
-    # x, dt, A, B, C, D, h0 (or null), y, hT, batch, S, H, P, G, N,
-    # chunk, stream
-    "ssd_f32": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    # q, k, v, qpos, kpos, scratch (or null), out, dims (int64[19]: B, T,
+    # Hq, Hkv, D, Dv, k strides (b, t, h), v strides (b, t, h), causal,
+    # window, ts, n_split, v_in_k, ring slots, path), scale, stream
+    "decode_attention_f32": ([_P] * 7 + [ctypes.POINTER(_LL),
+                                          ctypes.c_float, _P], _I),
+    # g, D, Dv, v_in_k, slots, path (-1: pick), out (int[3]: path, shared
+    # memory bytes, P @ V key groups)
+    "decode_attention_plan": ([_I] * 6 + [ctypes.POINTER(_I)], _I),
+    # x, dt, A, B, C, D, h0 (or null), y, hT, scratch, batch, S, H, P,
+    # G, N, chunk, stream
+    "ssd_f32": ([_P] * 10 + [_I] * 7 + [_P], _I),
     # xbuf, w_gate, w_up, w_down, hbuf (scratch), rows (int32 scratch,
     # streaming path only, else null), y, E, C, d, f, stream
     "moe_gmm_f32": ([_P] * 7 + [_I] * 4 + [_P], _I),

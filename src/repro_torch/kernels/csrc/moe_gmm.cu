@@ -63,35 +63,11 @@
 // three launches and counts as one.
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Copy BYTES (16 or 4) from global to shared memory; zeros when !valid
-// (src is then not read).
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool valid) {
-  const unsigned d = smem_u32(dst);
-  const int n = valid ? BYTES : 0;
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
+#include "hopper.cuh"
 
 __device__ __forceinline__ float silu_mul(float g, float u) {
   return g / (1.0f + expf(-g)) * u;
@@ -114,28 +90,6 @@ template <bool SWIGLU> struct Cfg {
   static constexpr int STAGE_FL = A_FL + NB * B_FL;
   static constexpr int SMEM = STAGES * STAGE_FL * 4;
 };
-
-// big = x rounded to TF32, to nearest with ties away (cvt.rna.tf32.f32's
-// rounding, as two integer ops: cvt.rna itself compiles to several
-// instructions a value on sm_90a, and the split of each operand is what
-// keeps this kernel's instruction issue below the tensor cores' rate);
-// small = x - big, exact in fp32, whose bits below TF32's the tensor
-// cores ignore (CUTLASS's 3xTF32 "fast fp32" split, round_half_ulp_
-// truncate and round_toward_zero).  |small| <= 2^-11 |x|, and what the
-// tensor cores drop of it is <= 2^-21 |x|.  A NaN stays NaN (in small).
-__device__ __forceinline__ void split_tf32(float x, unsigned& big,
-                                           unsigned& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // out[e] (M x N) = A[e] (M x K) @ B1[e] (K x N), or with SWIGLU
 // silu(A[e] @ B1[e]) * (A[e] @ B2[e]); all row-major.  VEC = 4 needs
@@ -336,13 +290,8 @@ cudaError_t launch(const float* A, const float* B1, const float* B2,
                    float* out, int E, int M, int K, int N, cudaStream_t st) {
   using G = Cfg<SWIGLU>;
   auto kern = gmm_kernel_tc<SWIGLU, VEC>;
-  static bool raised = false;            // the opt-in above 48 KB, once
-  if (!raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-    if (e != cudaSuccess) return e;
-    raised = true;
-  }
+  const cudaError_t e = allow_smem<gmm_kernel_tc<SWIGLU, VEC>>(G::SMEM);
+  if (e != cudaSuccess) return e;
   const dim3 grid((M + BM - 1) / BM, (N + G::BN - 1) / G::BN, E);
   kern<<<grid, NT, G::SMEM, st>>>(A, B1, B2, out, M, K, N);
   return cudaGetLastError();
@@ -557,14 +506,9 @@ cudaError_t launch(const float* A, const float* B1, const float* B2,
                    float* out, const int* rows, int E, int C, int K, int N,
                    cudaStream_t st) {
   auto kern = gmm_kernel_stream<SWIGLU, VEC>;
-  static bool raised = false;            // the opt-in above 48 KB, once
-  if (!raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Cfg<SWIGLU>::smem(CMAX));
-    if (e != cudaSuccess) return e;
-    raised = true;
-  }
+  const cudaError_t e = allow_smem<gmm_kernel_stream<SWIGLU, VEC>>(
+      Cfg<SWIGLU>::smem(CMAX));
+  if (e != cudaSuccess) return e;
   kern<<<dim3((N + BN - 1) / BN, E), NT, Cfg<SWIGLU>::smem(C), st>>>(
       A, B1, B2, out, rows, C, K, N);
   return cudaGetLastError();

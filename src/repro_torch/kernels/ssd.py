@@ -1,7 +1,14 @@
 """CUDA ``ssd``: the Mamba-2 chunked SSD scan of every mamba prefill
 (source: ``csrc/ssd.cu``; replaces ``repro/kernels/ssd_scan.py:74``).
 Computes ``ref.ssd_chunked`` within the port's tolerance, a ragged S
-and an initial state included."""
+and an initial state included.
+
+One call is four launches, chunk-parallel (each chunk's own end state,
+each chunk's ``C B^T`` once per group, the states passed on in chunk
+order, then each chunk's output), and counts as one launch of the
+kernel.  The per-chunk states and products go through a scratch buffer
+(``scratch_floats``: 172 MB at the served mamba2-2.7b shape) that the
+wrapper allocates."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -13,6 +20,15 @@ from repro_torch.kernels import _build
 launches = _build.LaunchCount("ssd")
 
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 128     # the kernel's on-chip tiles
+
+
+def scratch_floats(B: int, S: int, H: int, G: int, P: int, N: int,
+                   chunk: int) -> int:
+    """Floats of the call's scratch: each (chunk, group)'s ``C B^T``
+    (128 x 128), each (chunk, head)'s ``[P, N]`` state and its total
+    decay ``sum(dt * A)``."""
+    return B * -(-S // chunk) * (G * MAX_CHUNK * MAX_CHUNK
+                                 + H * (P * N + 1))
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -44,17 +60,19 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not (0 < chunk <= MAX_CHUNK and 0 < P <= MAX_P and 0 < N <= MAX_N):
         raise ValueError(f"ssd: chunk={chunk}, P={P}, N={N} exceed the "
                          f"kernel's tiles ({MAX_CHUNK}, {MAX_P}, {MAX_N})")
-    if b * H > 2 ** 31 - 1 or x.numel() >= 2 ** 31:
+    if b > 65535 or H > 65535 or x.numel() >= 2 ** 31:
         raise ValueError(f"ssd: x {tuple(x.shape)} exceeds the kernel's "
-                         "32-bit index")
+                         "grid (B, H <= 65535) or 32-bit index")
     y = torch.empty_like(x)
     hT = torch.empty((b, H, P, N), dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_floats(b, S, H, G, P, N, chunk),
+                          dtype=torch.float32, device=dev)
     lib = _build.LIBRARY.get()
     rc = lib.ssd_f32(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                      B_.data_ptr(), C.data_ptr(), D.data_ptr(),
                      None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                     hT.data_ptr(), b, S, H, P, G, N, chunk,
-                     _build.stream_of(x))
+                     hT.data_ptr(), scratch.data_ptr(), b, S, H, P, G, N,
+                     chunk, _build.stream_of(x))
     _build.check(rc, "ssd")
     launches.bump()
     return y, hT

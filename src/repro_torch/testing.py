@@ -35,9 +35,14 @@ tests, at reduced width, keep the elementwise rule.
 """
 from __future__ import annotations
 
+import math
+from typing import List, Optional, Tuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import ref
 
 RTOL = 1e-4
@@ -126,3 +131,149 @@ def moe_gmm_occupied_rows(xbuf: torch.Tensor, w_gate: torch.Tensor,
             y[e, rows] = ref.moe_gmm(xbuf[e:e + 1, rows], w_gate[e:e + 1],
                                      w_up[e:e + 1], w_down[e:e + 1])[0]
     return y
+
+
+def ssd_chunk_parallel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B_: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                       chunk: int, h0: Optional[torch.Tensor] = None,
+                       passes: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A plain model of the CUDA ``ssd``'s decomposition
+    (``csrc/ssd.cu``): (1) every chunk's own end state ``s_c = x^T (wgt *
+    B)`` at once, (2) the states passed on in chunk order, ``h_c =
+    exp(total_c) h_{c-1} + s_c``, keeping the state that enters each
+    chunk, (3) every chunk's output ``W x + exp(seg) C h_{c-1}^T + D x``
+    at once, W built on the causal half only.  ``passes`` takes the four
+    products by ``matmul_tf32`` (3: the kernel's 3xTF32), else in the
+    inputs' own precision.  Same arguments and results as
+    ``ref.ssd_chunked``."""
+    mm = torch.matmul if passes is None else \
+        (lambda a, b: matmul_tf32(a, b, passes))
+    b, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    x_, dt_ = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
+    B_, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (B_, C))
+
+    def heads(t):                     # [b, S', H, n] -> [b, H, nc, L, n]
+        return t.reshape(b, nc, chunk, H, -1).permute(0, 3, 1, 2, 4)
+
+    xh = heads(x_)
+    Bh, Ch = (heads(t.repeat_interleave(H // G, dim=2)) for t in (B_, C))
+    dth = dt_.reshape(b, nc, chunk, H).permute(0, 3, 1, 2)   # [b,H,nc,L]
+    seg = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    total = seg[..., -1]                                      # [b,H,nc]
+    # (1) each chunk's own end state, all chunks at once
+    wgt = torch.exp(total[..., None] - seg) * dth
+    st = mm(xh.transpose(-1, -2), Bh * wgt[..., None])       # [b,H,nc,P,N]
+    # (2) the state entering each chunk, in chunk order
+    h = torch.zeros((b, H, P, N), dtype=x.dtype, device=x.device) \
+        if h0 is None else h0
+    prev = []
+    for c in range(nc):
+        prev.append(h)
+        h = h * torch.exp(total[:, :, c])[:, :, None, None] + st[:, :, c]
+    prev = torch.stack(prev, dim=2)                           # [b,H,nc,P,N]
+    # (3) each chunk's output, W on its causal half
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()
+    diff = torch.where(causal, seg[..., :, None] - seg[..., None, :],
+                       torch.zeros((), dtype=seg.dtype, device=x.device))
+    W = torch.where(causal, mm(Ch, Bh.transpose(-1, -2)) * torch.exp(diff)
+                    * dth[..., None, :],
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+    y = (mm(W, xh) + mm(Ch, prev.transpose(-1, -2))
+         * torch.exp(seg)[..., None]) + xh * D[None, :, None, None, None]
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, nc * chunk, H, P)
+    return y[:, :S], h
+
+
+def decode_score_parts(D: int, path: str) -> List[Tuple[int, int]]:
+    """The column ranges of D whose partial ``q . k`` the CUDA
+    ``decode_attention`` sums, in this order: on the CUDA cores one
+    range a warp (8 warps, whole float4s), on the tensor cores the two
+    halves of D's k8 steps."""
+    if path == "tensor_cores":
+        mid = 8 * -(-(D // 8) // 2)
+        return [(0, mid), (mid, D)]
+    per = 4 * -(-(D // 4) // 8)
+    return [(d, min(D, d + per)) for d in range(0, D, per)]
+
+
+def decode_pv_groups(Dv: int, path: str) -> int:
+    """The key groups over which the CUDA ``decode_attention`` spreads a
+    tile's P @ V (each group's sums kept apart over the piece and added
+    in group order at its end): the wrapper's ``pv_groups`` on the CUDA
+    cores; one on the tensor cores (the mma sums all 32 keys)."""
+    return 1 if path == "tensor_cores" else kdecode.pv_groups(Dv)
+
+
+# (label, B, Hkv, g, T, D, Dv, v_in_k, path, pieces, (slots, blocks an
+# SM)): the four served decode steps (B = 4; a 2081-slot ring, smollm's
+# 97), as the kernel's layout (the C plan) gives them on 132 SMs
+SERVED_DECODE_PLANS = [
+    ("deepseek absorbed", 4, 1, 16, 2081, 576, 512, True, "tensor_cores",
+     33, (2, 1)),
+    ("deepseek materialized", 4, 16, 1, 2081, 192, 128, False,
+     "cuda_cores", 4, (2, 2)),
+    ("qwen3-4b", 4, 8, 4, 2081, 128, 128, False, "cuda_cores", 8, (3, 2)),
+    ("smollm-360m", 4, 5, 3, 97, 64, 64, False, "cuda_cores", 1, (4, 2)),
+]
+
+
+def decode_attention_pieces(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, kpos: torch.Tensor,
+                            qpos: torch.Tensor, *, ts: int,
+                            path: str = "cuda_cores", window: int = 0,
+                            scale: Optional[float] = None,
+                            causal: bool = True,
+                            tile: int = 32) -> torch.Tensor:
+    """A plain model of the CUDA ``decode_attention``'s order of work
+    (``csrc/decode_attention.cu``): T cut into pieces of ``ts`` keys;
+    in each piece an online softmax in base 2 over tiles of ``tile``
+    keys (tiles with no visible key skipped), a tile's scores summed
+    from the partial products over ``decode_score_parts`` in order, its
+    P @ V kept apart by key group (``decode_pv_groups``) and the groups
+    added in order at the end of the piece; the pieces' ``(m, l, acc)``
+    merged in piece order with ``w_i = exp2(m_i - max m)``.  A row that
+    sees no key gives zeros, as the kernel's.  Same arguments as
+    ``ref.decode_attention`` (qpos a ``[1]`` tensor) and ``causal``."""
+    B, Hq, D = q.shape
+    T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    g = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    qs = (q * (scale * math.log2(math.e))).reshape(B, Hkv, g, D)
+    vis = ref.visible(qpos.reshape(1), kpos, causal, window)[0]     # [T]
+    parts = decode_score_parts(D, path)
+    groups = decode_pv_groups(Dv, path)
+    per = tile // groups
+    pieces = []
+    for t_begin in range(0, T, ts):
+        t_end = min(T, t_begin + ts)
+        m = torch.full((B, Hkv, g), ref.NEG_INF, dtype=q.dtype)
+        l = torch.zeros((B, Hkv, g), dtype=q.dtype)
+        acc = torch.zeros((groups, B, Hkv, g, Dv), dtype=q.dtype)
+        for t0 in range(t_begin, t_end, tile):
+            keys = slice(t0, min(t_end, t0 + tile))
+            if not bool(vis[keys].any()):
+                continue
+            s = sum(torch.einsum("bkgd,btkd->bkgt", qs[..., d0:d1],
+                                 k[:, keys, :, d0:d1]) for d0, d1 in parts)
+            s = torch.where(vis[keys], s, torch.full_like(s, ref.NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp2(s - m_new[..., None])
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + p.sum(-1)
+            vt = F.pad(v[:, keys], (0, 0, 0, 0, 0, tile - p.shape[-1]))
+            p = F.pad(p, (0, tile - p.shape[-1]))
+            acc = acc * alpha[..., None] + torch.stack([torch.einsum(
+                "bkgt,btkd->bkgd", p[..., i * per:(i + 1) * per],
+                vt[:, i * per:(i + 1) * per]) for i in range(groups)])
+            m = m_new
+        pieces.append((m, l, sum(acc[i] for i in range(groups))))
+    mx = torch.stack([pc[0] for pc in pieces]).amax(0)
+    w = [torch.exp2(pc[0] - mx) for pc in pieces]
+    num = sum(wi[..., None] * pc[2] for wi, pc in zip(w, pieces))
+    den = sum(wi * pc[1] for wi, pc in zip(w, pieces))
+    return (num / torch.clamp(den, min=1e-30)[..., None]).reshape(B, Hq, Dv)

@@ -20,10 +20,12 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as pl_decode
 from repro.kernels.flash_attention import flash_attention as pl_flash
+from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops, ref
-from repro_torch.testing import assert_close
+from repro_torch.testing import assert_close, decode_attention_pieces
 
 torch.set_num_threads(1)
 
@@ -147,3 +149,53 @@ def test_ops_refuses_cpu_tensors_for_the_kernel():
         ops.attention(tq, tk, tv, pos, pos, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         ops.attention(tq, tk, tv, pos, pos, impl="pallas")
+
+
+# (B, T, Hq, Hkv, D, window, fill, pieces): the CUDA decode_attention's
+# order of work (pieces of whole tiles, partial scores summed over D in a
+# fixed order, pieces merged in order) at g = 1, 4 and 16 (16: the
+# tensor-core path's two halves of D), with a window, and at one piece
+PIECE_CASES = [
+    (2, 150, 4, 4, 64, 0, 120, 3),          # g = 1
+    (2, 130, 8, 2, 32, 0, 130, 2),          # g = 4
+    (1, 150, 16, 1, 32, 0, 140, 3),         # g = 16
+    (2, 96, 8, 2, 64, 40, 96, 1),           # one piece, a window
+    (1, 80, 16, 1, 64, 0, 80, 1),           # g = 16, one piece
+]
+
+
+@pytest.mark.parametrize("case", PIECE_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_decode_merge_order_model_matches_jax_and_pallas(case):
+    B, T, Hq, Hkv, D, window, fill, pieces = case
+    q, k, v = _qkv(B, 1, T, Hq, Hkv, D)
+    q = q[:, 0]
+    kpos = np.where(np.arange(T) < fill, np.arange(T), -1).astype(np.int32)
+    tiles = -(-T // kdecode.TILE)
+    ts = -(-tiles // pieces) * kdecode.TILE
+    assert -(-T // ts) == pieces
+    # runs of 16 heads take the tensor cores (the C plan; on the card
+    # test_cuda_decode_attention_cases_cover_both_paths_and_plans)
+    path = "tensor_cores" if Hq // Hkv == 16 else "cuda_cores"
+    got = decode_attention_pieces(*_t(q, k, v, kpos),
+                                  torch.tensor([fill - 1], dtype=torch.int32),
+                                  ts=ts, path=path, window=window)
+    assert_close(got, jref.decode_attention(*_j(q, k, v, kpos),
+                                            jnp.asarray(fill - 1),
+                                            window=window))
+    assert_close(got, pl_decode(*_j(q, k, v, kpos), jnp.asarray(fill - 1),
+                                window=window, block_k=16, interpret=True))
+
+
+def test_decode_merge_order_model_gives_zeros_without_a_visible_key():
+    """Every key in the query's future: the model, like the kernel and
+    the Pallas kernel, gives zeros (``ref.decode_attention`` gives the
+    mean of v)."""
+    q, k, v = _qkv(2, 1, 70, 16, 1, 32)
+    kpos = np.arange(70, dtype=np.int32) + 100
+    got = decode_attention_pieces(*_t(q[:, 0], k, v, kpos),
+                                  torch.tensor([50], dtype=torch.int32),
+                                  ts=32, path="tensor_cores")
+    assert torch.equal(got, torch.zeros_like(got))
+    assert_close(got, pl_decode(*_j(q[:, 0], k, v, kpos), jnp.asarray(50),
+                                block_k=16, interpret=True))

@@ -43,7 +43,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import transformer
 from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.kernels import window_gather as kgather
-from repro_torch.testing import assert_bitwise, assert_close
+from repro_torch.testing import (SERVED_DECODE_PLANS, assert_bitwise,
+                                 assert_close)
 
 # (B, L, Cin, Cout, K, groups, stride, padding)
 CONV_CASES = [
@@ -230,6 +231,14 @@ DECODE_CASES = [
     (2, 1, 2081, 16, 16, 192, True, 0, 150, 0),     # partly filled ring
     (1, 1, 70, 48, 1, 64, True, 0, 70, 0),          # MQA, g = 48 > 16
     (2, 1, 33, 8, 2, 16, False, 0, 33, 0),          # not causal
+    # the redesign's paths: tensor cores (runs of 16 heads) in one piece
+    # and in several, with a window and two runs; CUDA cores at g = 16
+    # when D is no multiple of 8; v of its own width on the tensor cores
+    (1, 1, 100, 16, 1, 32, True, 0, 100, 0),        # 2 pieces, mma
+    (2, 1, 300, 32, 2, 64, True, 100, 300, 0),      # window, 2 runs, mma
+    (1, 1, 70, 16, 1, 20, True, 0, 70, 0),          # g = 16, CUDA cores
+    (2, 1, 500, 16, 1, 192, True, 0, 480, 0),       # mma, Dv = 128
+    (1, 1, 200, 4, 4, 32, True, 0, 190, 0),         # one piece, 6 slots
 ]
 
 
@@ -340,6 +349,63 @@ def test_cuda_decode_attention_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+def test_cuda_decode_attention_cases_cover_both_paths_and_plans(
+        cuda_device):
+    """Each of the kernel's paths runs in one piece (one launch, the
+    output written by the split kernel) and in several (the combine),
+    and the ring takes its shallowest and deepest depths."""
+    seen, depths = set(), set()
+    for case in DECODE_CASES:
+        causal, window = case[6], case[7]
+        q, k, v, qpos, kpos = attn_inputs(case, cuda_device)
+        kdecode.decode_attention(q[:, 0], k, v, kpos, qpos, window=window,
+                                 causal=causal)
+        plan = kdecode.plan_of(q[:, 0], k, v, kpos, qpos, window=window,
+                               causal=causal)
+        seen.add((plan.path, plan.n_split > 1))
+        depths.add(plan.slots)
+    assert seen == {(p, m) for p in kdecode.PATHS for m in (False, True)}
+    assert {2, kdecode.MAX_SLOTS} <= depths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SERVED_DECODE_PLANS, ids=lambda c: c[0])
+def test_cuda_decode_plan_at_the_served_shapes(cuda_device, case):
+    """The kernel's own layout (the C plan) gives the served decode
+    steps the paths, ring depths, blocks an SM and pieces of the CPU
+    test's table, and its P @ V key groups are the wrapper's."""
+    _, B_, Hkv, g, T, D, Dv, v_in_k, path, pieces, (slots, per_sm) = case
+    got, smem, groups = kdecode.c_plan(g, D, Dv, v_in_k)
+    assert got == path and kdecode.blocks_per_sm(smem) == per_sm
+    assert groups == (1 if path == "tensor_cores" else kdecode.pv_groups(Dv))
+    ts, n = kdecode.split_plan(B_, Hkv, g, T, 132, per_sm,
+                               kdecode.MIN_PIECE_TILES[path])
+    assert n == pieces
+    depth = lambda s: (kdecode.c_plan(g, D, Dv, v_in_k, s, path)
+                       or (0, None))[1]
+    assert kdecode.ring_plan(depth, ts // 32) == (slots, per_sm)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_plan_refuses_what_does_not_fit(cuda_device):
+    """16 heads at 576 / 512 with v in rows of its own: two K/V tiles do
+    not fit a block on either path, and the call is refused before any
+    launch; the P @ V key groups agree with the wrapper's at every Dv."""
+    assert kdecode.c_plan(16, 576, 512, False) is None
+    q = torch.zeros((4, 16, 576), device=cuda_device)
+    k = torch.zeros((4, 40, 1, 576), device=cuda_device)
+    v = torch.zeros((4, 40, 1, 512), device=cuda_device)
+    kpos = torch.arange(40, dtype=torch.int32, device=cuda_device)
+    before = kdecode.launches.value
+    with pytest.raises(ValueError, match="shared memory"):
+        kdecode.decode_attention(q, k, v, kpos, 39)
+    assert kdecode.launches.value == before
+    for Dv in range(4, 513, 4):
+        assert kdecode.c_plan(1, 64, Dv, False, 2, "cuda_cores")[2] == \
+            kdecode.pv_groups(Dv)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,fill", [(2081, 2065), (300, 37)])
 def test_cuda_decode_attention_absorbed_mla_step(cuda_device, T, fill):
     """The absorbed MLA step: 16 query heads on one KV head, D = 576 (the
@@ -429,6 +495,8 @@ SSD_CASES = [
     (1, 37, 3, 8, 1, 16, 32, True),         # chunk > S
     (2, 300, 4, 64, 1, 128, 128, True),     # the served tile, ragged S
     (1, 256, 6, 64, 2, 128, 128, False),
+    (1, 70, 2, 6, 1, 10, 32, True),         # P, N off 4: 4-byte copies
+    (2, 200, 4, 64, 2, 128, 64, True),      # served P, N at chunk 64
 ]
 
 

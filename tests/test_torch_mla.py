@@ -53,7 +53,8 @@ from repro_torch.models import moe, transformer
 from repro_torch.models.api import get_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.runtime import RuntimeOptions
-from repro_torch.testing import assert_bitwise, assert_close
+from repro_torch.testing import (SERVED_DECODE_PLANS, assert_bitwise,
+                                 assert_close)
 
 torch.set_num_threads(1)
 KEY = jax.random.PRNGKey(0)
@@ -386,27 +387,62 @@ def test_ops_decode_dispatch_and_the_wrappers_refuse_cpu_tensors():
         kflash.flash_attention(q[:, None], k, v, qpos, kpos)
 
 
-@pytest.mark.parametrize("B_,Hkv,g,T", [
-    (4, 1, 16, 2081),          # absorbed MLA step
-    (4, 16, 1, 2081),          # materialized MLA step
-    (4, 8, 4, 2081),           # qwen3-4b
-    (4, 5, 3, 97),             # smollm-360m
-    (1, 1, 48, 5),             # MQA, g over 16, a short ring
-    (64, 32, 1, 100000),       # more blocks than two a SM
+@pytest.mark.parametrize("B_,Hkv,g,T,per_sm,min_tiles", [
+    (4, 1, 16, 2081, 1, 2),         # absorbed MLA step
+    (4, 16, 1, 2081, 2, 4),         # materialized MLA step
+    (4, 8, 4, 2081, 2, 4),          # qwen3-4b
+    (4, 5, 3, 97, 2, 4),            # smollm-360m
+    (1, 1, 48, 5, 2, 4),            # MQA, g over 16, a short ring
+    (64, 32, 1, 100000, 2, 4),      # more blocks than one wave
 ])
-def test_decode_split_plan_covers_t_in_whole_tiles(B_, Hkv, g, T):
+def test_decode_split_plan_covers_t_in_whole_tiles(B_, Hkv, g, T, per_sm,
+                                                   min_tiles):
     n_sm = 132
-    ts, n = kdecode.split_plan(B_, Hkv, g, T, n_sm)
+    ts, n = kdecode.split_plan(B_, Hkv, g, T, n_sm, per_sm, min_tiles)
     assert ts % kdecode.TILE == 0 and ts > 0
     assert (n - 1) * ts < T <= n * ts
     runs = -(-g // kdecode.HEADS_PER_BLOCK)
-    blocks = B_ * Hkv * runs * n
-    tiles = -(-T // kdecode.TILE)
-    if n < tiles:                    # T could be cut finer
-        assert blocks >= 2 * n_sm or B_ * Hkv * runs >= 2 * n_sm
-    assert n <= max(1, 2 * n_sm)
+    if n > 1:               # one wave at most, pieces long enough
+        assert B_ * Hkv * runs * n <= per_sm * n_sm
+        assert ts >= min_tiles * kdecode.TILE
     if (B_, Hkv, g, T) == (4, 1, 16, 2081):
-        assert (ts, n) == (32, 66)
+        assert (ts, n) == (64, 33)
+
+
+@pytest.mark.parametrize("case", SERVED_DECODE_PLANS, ids=lambda c: c[0])
+def test_decode_split_plan_at_the_served_shapes(case):
+    """The absorbed step takes the tensor cores in 33 pieces of two
+    tiles (half the first version's 66 pieces of one, half its partial
+    sums); the materialized and qwen steps fill one wave at two blocks
+    an SM; smollm's 97 slots are one piece, so one launch and no
+    combine, with all four of its tiles in flight at once.  (The card
+    test ``test_cuda_decode_plan_at_the_served_shapes`` holds the C
+    plan to the same table.)"""
+    _, B_, Hkv, g, T, D, Dv, v_in_k, path, pieces, (slots, per_sm) = case
+    ts, n = kdecode.split_plan(B_, Hkv, g, T, 132, per_sm,
+                               kdecode.MIN_PIECE_TILES[path])
+    assert n == pieces
+    # the ring as deep as the piece allows, up to the deepest that fits
+    # (bytes of a block of this many an SM; None: does not fit)
+    need = {1: 150000, 2: 100000}[per_sm]
+    assert kdecode.ring_plan(lambda s: need if s <= slots else None,
+                             ts // 32) == (min(slots, ts // 32), per_sm)
+
+
+def test_decode_split_plan_one_piece_and_the_refused_shape():
+    """A ring of up to 2 MIN_PIECE_TILES - 1 tiles is one piece on
+    either path; a ring depth that does not fit stops the ring (and a
+    shape whose two tiles do not fit is refused before any launch:
+    ``test_cuda_decode_plan_refuses_what_does_not_fit``)."""
+    for path in ("cuda_cores", "tensor_cores"):
+        lo = kdecode.MIN_PIECE_TILES[path]
+        max_t = kdecode.TILE * (2 * lo - 1)
+        assert kdecode.split_plan(1, 1, 16, max_t, 132, 2, lo) == (
+            -(-max_t // kdecode.TILE) * kdecode.TILE, 1)
+        assert kdecode.split_plan(1, 1, 16, max_t + kdecode.TILE, 132, 2,
+                                  lo)[1] == 2
+    assert kdecode.ring_plan(lambda s: 1000 if s < 4 else None, 8) == (3, 2)
+    assert kdecode.ring_plan(lambda s: 1000, 3) == (3, 2)
 
 
 def test_serve_runs_deepseek_on_the_cpu(capsys):

@@ -16,6 +16,11 @@ PyTorch on the CPU (``repro_torch.testing``).
   too, since silu(0)·0 = 0); an empty expert whose weights hold NaN is
   the one difference, by design (the plain version gives NaN, the kernel
   zeros).
+* The CUDA ``ssd`` takes its four products as 3xTF32 too: its plain
+  model (``ssd_chunk_parallel`` with ``passes=3``) at the served per-head
+  tile (chunk 128, P = 64, N = 128; mamba2-2.7b's input scales) lands
+  within 1e-4 of a float64 ``ssd_chunked`` and as close as float32;
+  plain TF32 misses.
 """
 import numpy as np
 import pytest
@@ -26,7 +31,8 @@ from repro_torch.kernels import moe_gmm as kgmm
 from repro_torch.kernels import ref
 from repro_torch.models import moe
 from repro_torch.testing import (assert_close, moe_gmm_occupied_rows,
-                                 moe_gmm_tf32, round_tf32)
+                                 moe_gmm_tf32, round_tf32,
+                                 ssd_chunk_parallel)
 
 torch.set_num_threads(1)
 
@@ -149,3 +155,39 @@ def test_empty_expert_with_nan_weights_is_zero_by_design():
     assert float(got[empty[0]].abs().max()) == 0.0
     keep = [e for e in range(xe.shape[0]) if e != empty[0]]
     assert_close(got[keep], plain[keep])
+
+
+def _ssd_inputs(S, with_h0, seed):
+    """One batch row, two heads of mamba2-2.7b's tile (P = 64, N = 128)
+    at its input scales (as ``chip_smoke.py`` phase 2 draws them):
+    x, h0 ~ N(0, 1), B ~ N(0, 1), C ~ N(0, 1/N), dt = softplus(N(0, 1)),
+    A = -U(1, 16); float64."""
+    rng = np.random.default_rng(seed)
+    B, H, P, G, N = 1, 2, 64, 1, 128
+    arrs = (rng.standard_normal((B, S, H, P)),
+            np.log1p(np.exp(rng.standard_normal((B, S, H)))),
+            -(1 + 15 * rng.random(H)),
+            rng.standard_normal((B, S, G, N)),
+            rng.standard_normal((B, S, G, N)) / N ** 0.5,
+            rng.standard_normal(H),
+            rng.standard_normal((B, H, P, N)) if with_h0 else None)
+    return [None if a is None else torch.from_numpy(np.asarray(a))
+            for a in arrs]
+
+
+@pytest.mark.parametrize("S,with_h0", [(256, True), (384, False)])
+def test_3xtf32_ssd_is_as_close_to_fp64_as_fp32(S, with_h0):
+    t64 = _ssd_inputs(S, with_h0, seed=1)
+    t32 = [None if t is None else t.float() for t in t64]
+    want = ref.ssd_chunked(*t64[:6], 128, t64[6])
+    got = {"fp32": ref.ssd_chunked(*t32[:6], 128, t32[6]),
+           "3xtf32": ssd_chunk_parallel(*t32[:6], 128, t32[6], passes=3),
+           "tf32": ssd_chunk_parallel(*t32[:6], 128, t32[6], passes=1)}
+    err = {k: [float((g.double() - w).abs().max()) for g, w in zip(v, want)]
+           for k, v in got.items()}
+    for name, g, w in zip(("y", "hT"), got["3xtf32"], want):
+        assert_close(g, w, f"3xTF32 {name} {err}")
+    for i in range(2):
+        assert err["3xtf32"][i] <= 2 * err["fp32"][i], err
+    assert not np.allclose(got["tf32"][0].numpy(), want[0].numpy(),
+                           rtol=1e-4, atol=1e-4), err

@@ -39,7 +39,8 @@ from repro_torch.models import ssm
 from repro_torch.models.api import get_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.runtime import RuntimeOptions
-from repro_torch.testing import assert_bitwise, assert_close
+from repro_torch.testing import (assert_bitwise, assert_close,
+                                 ssd_chunk_parallel)
 
 torch.set_num_threads(1)
 KEY = jax.random.PRNGKey(0)
@@ -86,6 +87,27 @@ def test_ssd_chunked_matches_jax_ref_and_pallas(case):
     args = ssd_inputs(case)
     y, hT = ops.ssd(*map(_t, args[:6]), chunk, _t(args[6]))
     assert y.shape == args[0].shape and hT.dtype == torch.float32
+    yw, hw = jref.ssd_chunked(*map(_j, args[:6]), chunk, _j(args[6]))
+    assert_close(y, yw, "y vs ref")
+    assert_close(hT, hw, "hT vs ref")
+    yp, hp = pl_ssd(*map(_j, args[:6]), chunk, _j(args[6]),
+                    interpret=True)
+    assert_close(y, yp, "y vs Pallas")
+    assert_close(hT, hp, "hT vs Pallas")
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_ssd_chunk_parallel_model_matches_jax_ref_and_pallas(case):
+    """The CUDA ``ssd``'s decomposition (each chunk's own end state, the
+    states passed on in chunk order, each chunk's output; W on its
+    causal half) against the JAX package's oracle and its Pallas
+    kernel, h0, a ragged S and G = 2 included."""
+    chunk = case[6]
+    args = ssd_inputs(case)
+    y, hT = ssd_chunk_parallel(*map(_t, args[:6]), chunk, _t(args[6]))
+    assert y.shape == args[0].shape and hT.shape == (
+        case[0], case[2], case[3], case[5])
     yw, hw = jref.ssd_chunked(*map(_j, args[:6]), chunk, _j(args[6]))
     assert_close(y, yw, "y vs ref")
     assert_close(hT, hw, "hT vs ref")
