@@ -61,7 +61,8 @@ repeatable, the convs are timed on their direct path too, and the small
 conv calls, every ``decode_attention`` shape and ``ssd`` get each call's
 device time (a CUDA graph) and host time beside the event-timed figure
 (``decode_attention`` and ``ssd`` with their plan and scratch bytes).
-``--profile`` adds one traced flush at P=8 and at P=64 after phase 3 and
+``--only=gather,flash`` runs phase 2 for the named kernels alone and
+prints no result line.  ``--profile`` adds one traced flush at P=8 and at P=64 after phase 3 and
 one traced prefill and decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe
 and deepseek-v2-lite (and one absorbed step) (``torch.profiler``):
 device time by kernel and the card's idle share.
@@ -301,7 +302,8 @@ def phase_conv(torch, np, F, specs, record):
 def phase_gather(torch, np, record):
     """``window_gather`` bitwise against the plain version on the ECG
     ring (P=64, L=7500: wraparound, ends < L, partial and zero valid)
-    and on the vitals ring (L=30)."""
+    and on the vitals ring (L=30), with one call's device time (a CUDA
+    graph of 20 calls) and host time beside the event-timed figure."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import window_gather as kgather
 
@@ -333,12 +335,15 @@ def phase_gather(torch, np, record):
         nbytes = 4.0 * (C * np.minimum(valid, L).sum() + P * C * L
                         + 3 * P)
         rec = {"ms": _time_ms(torch, run, 20),
+               "device_ms": _device_ms(torch, run),
+               "host_ms": _host_ms(torch, run),
                "plain_ms": _time_ms(torch, plain, 20),
                "bound_ms": 1e3 * nbytes / HBM_BYTES_S,
                "max_abs_err": float((y - r).abs().max()),
                "P": P, "C": C, "cap": cap, "L": L}
         print(f"  window_gather {label:6s} [{N},{C},{cap}] P={P} L={L}: "
-              f"bitwise equal; kernel {rec['ms']:.4f} ms, plain "
+              f"bitwise equal; kernel {rec['ms']:.4f} ms (one call: device "
+              f"{rec['device_ms']:.4f}, host {rec['host_ms']:.4f}), plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms",
               flush=True)
         out[label] = rec
@@ -416,9 +421,13 @@ def _attn_bound(B, Hq, Hkv, D, Dv, vis, S, T, v_in_k=False):
 
 def phase_flash(torch, np, F, record):
     """``flash_attention`` against the plain version (TF32 off) at the
-    LM path's prefill shapes, with its time, the plain version's, one
+    LM path's prefill shapes, bitwise repeatable, with its time (and one
+    call's device and host time), the plain version's, one
     ``F.scaled_dot_product_attention`` call's (same boolean mask, fp32,
-    ``enable_gqa``; v of its own width) and the bound (``_attn_bound``)."""
+    ``enable_gqa``; v of its own width) and the bound: the larger of the
+    bytes and the operations as three TF32 products on the tensor cores
+    (``_attn_bound``'s FLOPs x 3 at 495 TFLOP/s, what the kernel's
+    3xTF32 can reach), with the fp32 CUDA-core figure beside it."""
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
 
@@ -437,31 +446,45 @@ def phase_flash(torch, np, F, record):
         plain = lambda: ref.attention(q, k, v, qp, kp, causal=True,
                                       window=window)
         y, r = run(), plain()
+        y2 = run()
         torch.cuda.synchronize()
         err = float((y - r).abs().max())
         if not torch.allclose(y, r, rtol=TOL, atol=TOL):
             raise AssertionError(f"flash_attention {label}: max abs err "
                                  f"{err} beyond rtol=atol={TOL}")
+        if not torch.equal(y, y2):
+            raise AssertionError(f"flash_attention {label}: two calls "
+                                 "differ (not bitwise repeatable)")
         vis = ref.visible(qp, kp, True, window)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=vis, enable_gqa=True)
         lib_err = float((lib().transpose(1, 2) - r).abs().max())
         bs, os_, pairs = _attn_bound(B, Hq, Hkv, D, Dv, vis, S, T)
+        tc = 3 * os_ * FP32_FLOP_S / TF32_FLOP_S      # 3xTF32
         rec = {"B": B, "S": S, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
                "Dv": Dv, "window": window, "visible_pairs": pairs,
-               "ms": _time_ms(torch, run), "plain_ms": _time_ms(torch, plain),
+               "ms": _time_ms(torch, run), "device_ms": _device_ms(
+                   torch, run, 5 if S * T >= 2 ** 20 else 20),
+               "host_ms": _host_ms(torch, run),
+               "plain_ms": _time_ms(torch, plain),
                "library_ms": _time_ms(torch, lib),
-               "bound_ms": 1e3 * max(bs, os_),
-               "bound_by": "operations" if os_ >= bs else "bytes",
+               "bound_ms": 1e3 * max(bs, tc),
+               "bound_by": "operations" if tc >= bs else "bytes",
+               "bytes_ms": 1e3 * bs, "tf32x3_ops_ms": 1e3 * tc,
+               "fp32_ops_ms": 1e3 * os_,
                "max_abs_err": err, "library_max_abs_err": lib_err}
         print(f"  flash_attention {label:28s} B={B} S={S} T={T} Hq={Hq} "
-              f"Hkv={Hkv} D={D} Dv={Dv}: max abs err {err:.3g}; kernel "
-              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
-              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']})", flush=True)
+              f"Hkv={Hkv} D={D} Dv={Dv}: max abs err {err:.3g}, bitwise "
+              f"repeatable; kernel {rec['ms']:.4f} ms (one call: device "
+              f"{rec['device_ms']:.4f}, host {rec['host_ms']:.4f}), plain "
+              f"{rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; 3xTF32 "
+              f"{rec['tf32x3_ops_ms']:.4f}, fp32 CUDA cores "
+              f"{rec['fp32_ops_ms']:.4f}, bytes {rec['bytes_ms']:.4f})",
+              flush=True)
         out[label] = rec
-        del q, k, v, y, r, qt, kt, vt, vis
+        del q, k, v, y, y2, r, qt, kt, vt, vis
         torch.cuda.empty_cache()
     record["flash_attention"] = out
     return out
@@ -1672,6 +1695,33 @@ def phase_small_reference(torch, np):
           f"{err:.3g}", flush=True)
 
 
+def phase_only(torch, np, F, specs, record, names) -> int:
+    """``--only=gather,flash,...``: phase 2 for the named kernels alone
+    (gather, conv, mamba_conv, flash, decode, ssd, gmm), its records in
+    ``chiprun_out/chip_smoke_only.json``; no served path and no result
+    line."""
+    phases = {"gather": lambda: phase_gather(torch, np, record),
+              "conv": lambda: phase_conv(torch, np, F, specs, record),
+              "mamba_conv": lambda: phase_mamba_conv(torch, np, F, record),
+              "flash": lambda: phase_flash(torch, np, F, record),
+              "decode": lambda: phase_decode(torch, np, F, record),
+              "ssd": lambda: phase_ssd(torch, record),
+              "gmm": lambda: phase_gmm(torch, record)}
+    unknown = [n for n in names if n not in phases]
+    if unknown:
+        raise ValueError(f"--only: unknown phases {unknown}; known: "
+                         f"{sorted(phases)}")
+    for name in names:
+        phases[name]()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_only.json").write_text(json.dumps(
+        {k: v for k, v in record.items() if k != "nvcc_log"}, indent=1,
+        default=str))
+    print(f"  --only={','.join(names)}: done", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1689,6 +1739,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     profile = "--profile" in sys.argv
+    only = [name for a in sys.argv[1:] if a.startswith("--only=")
+            for name in a.split("=", 1)[1].split(",")]
     # the plain conv runs through cuDNN: keep it (and matmuls) in fp32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1715,6 +1767,8 @@ def main() -> int:
 
     specs = zoo_specs(reduced=False)
     print("phase 2: kernels against their plain versions", flush=True)
+    if only:
+        return phase_only(torch, np, F, specs, record, only)
     gather = phase_gather(torch, np, record)
     conv = phase_conv(torch, np, F, specs, record)
     mconv = phase_mamba_conv(torch, np, F, record)
@@ -1871,7 +1925,11 @@ def main() -> int:
          "launches": launches["window_gather"],
          "max_abs_err": max(v["max_abs_err"] for v in gather.values()),
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "device_ms": g["device_ms"], "host_ms": g["host_ms"],
+         "shape": "ECG ring: [64, 3, 16384], P=64, L=7500",
+         "vitals": {k: gather["vitals"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "device_ms", "host_ms")}},
         conv_row("conv1d_stripe_stacked", ("conv1d_stripe_stacked", 64),
                  "src/repro/kernels/conv1d_stripe.py:99"),
         conv_m1,
@@ -1888,10 +1946,15 @@ def main() -> int:
          "ms": fp["ms"], "plain_ms": fp["plain_ms"],
          "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
          "library_ms": fp["library_ms"],
+         **{k: fp[k] for k in ("device_ms", "host_ms", "tf32x3_ops_ms",
+                               "fp32_ops_ms", "bytes_ms")},
          "shape": "qwen3-4b prefill: B=4 S=T=2048 Hq=32 Hkv=8 D=128 causal",
-         "mla_prefill": {k: flash["deepseek MLA prefill"][k] for k in
-                         ("ms", "plain_ms", "bound_ms", "bound_by",
-                          "library_ms")}},
+         **{key: {k: flash[label][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "device_ms", "host_ms", "tf32x3_ops_ms", "fp32_ops_ms")}
+            for key, label in (("mla_prefill", "deepseek MLA prefill"),
+                               ("window_512", "qwen3-4b prefill window=512"),
+                               ("smollm-360m", "smollm-360m prefill"))}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:69",

@@ -36,9 +36,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every entry point: (argtypes, restype)
 SIGNATURES = {
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
-    # buf, patients, ends, valid, out, N, C, cap, P, L, stream
-    "window_gather_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-                          _I),
+    # buf, patients, ends, valid, out, dims (int[5]: N, C, cap, P, L),
+    # stream
+    "window_gather_f32": ([_P] * 5 + [ctypes.POINTER(_I), _P], _I),
     # x, w, b, y, dims (int[11]: M, B, L, Cin, K, cin_g, Cout, groups,
     # stride, lo, L_out), force_direct, stream
     "conv1d_stripe_f32": ([_P] * 4 + [ctypes.POINTER(_I), _I, _P], _I),

@@ -19,52 +19,93 @@
 // Masked scores are -1e30, never -inf: a tile whose keys a row cannot
 // see gives exp(-1e30 - -1e30) = 1, and the first visible key later
 // wipes that with alpha = exp(-1e30 - m) = 0.  The softmax runs in
-// base 2 (exp2f of scores pre-multiplied by scale * log2 e), which is
-// the same function.  A row that sees no key at all in the tiles the
-// block visits gets the mean of v over those tiles (ref.attention gives
-// the mean over all T); no row of the LM path has one, since a query
-// always sees its own key.
-//
-// One block of 256 threads per (q tile of 64 rows, query head, batch).
-// Q, K and V tiles are staged in shared memory with cp.async (rows padded
-// to D + 4 and Dv + 4 floats, so the float4 reads of 16 consecutive rows
-// hit distinct banks); each thread holds a 4 x 4 block of scores (rows
-// 4*ty.., keys tx + 16*j) and a 4 x Dv/16 block of the accumulator.  Row
-// max and sum are reduced over the 16 threads of a row with shuffles.
-// The probabilities go back through shared memory (over the K tile,
-// which is dead by then) for the P @ V product.  A k tile is skipped, for
-// the whole block, when no key of it is live for any row: no valid key,
-// or (causal) its least valid position is past the block's last query,
-// or (window) its greatest position is at least `window` behind the
-// block's first query.  Causal prefill thereby does about half the work
-// of a dense sweep.  A single decode token (S = 1) is the work of
-// decode_attention.cu, whose wrapper ops.attention calls instead.
-//
-// Ragged edges (S, T not multiples of the tile) are masked in the
-// kernel: K/V rows past T are zero-filled by cp.async and read as empty
-// slots (kpos = -1), rows past S are computed and not stored.  Nothing
-// is padded by the wrapper.
-//
-// Both products are fp32 FMAs on the CUDA cores, in a fixed order with
-// no atomics, so a result is deterministic at a fixed shape.  The port
-// is held to rtol = atol = 1e-4 against the plain fp32 version; tensor
-// cores would need 3xTF32 (split each operand into a TF32 high part and
-// a TF32 remainder, three products) to stay inside that, since plain
-// TF32 keeps 10 mantissa bits and moves a D = 128 dot product by ~1e-3.
+// base 2 (exp2f of scores multiplied by scale * log2 e), which is the
+// same function.
 //
 // What bounds it on the card: the operations, 2 (D + Dv) FLOPs per
-// visible (q, k) pair and head.  At the qwen3-4b prefill shape (B=4,
-// S=T=2048, Hq=32, Hkv=8, D=128, causal) 137 GFLOP per layer, ~2.05 ms
-// at the 67 TFLOP/s fp32 rate, against ~0.1 ms for the bytes (q, k, v
-// read once and o written once); at the DeepSeek-V2-Lite MLA prefill
-// (Hq = Hkv = 16, D = 192, Dv = 128) 85.9 GFLOP, ~1.28 ms.
+// visible (q, k) pair and head.  At the qwen3-4b prefill shape (B = 4,
+// S = T = 2048, Hq = 32, Hkv = 8, D = 128, causal) 137.4 GFLOP a layer:
+// 2.05 ms at the 67 TFLOP/s of fp32 FMAs on the CUDA cores, where the
+// first version of this kernel ran (46 % of that rate, 4.43 ms on an
+// H100 at 700 W).  Here both products run on the tensor cores as
+// 3xTF32 (hopper.cuh: each operand split into a TF32 big part and the
+// TF32 of its remainder, small * big + big * small + big * big summed by
+// mma.sync.m16n8k8 in fp32), three TF32 products for each fp32 one:
+// 3 x 137.4 GFLOP at 495 TFLOP/s is 0.833 ms at qwen's shape, 0.521 ms
+// at the DeepSeek-V2-Lite MLA prefill (Hq = Hkv = 16, D = 192, Dv =
+// 128) and 0.364 ms under a 512-token window.  Plain TF32 (one product)
+// would move a D = 128 output by ~1e-3, beyond the port's 1e-4.  The
+// bytes (q, k, v read once and o written once) are ~0.1 ms.
+//
+// The design, for that bound:
+// * A block takes BQ = 128 query rows of one (query head, batch): 8
+//   warps, each owning 16 rows (the m16 of the mma), so the scores S =
+//   Q K^T of a key tile are a warp's accumulator fragments and the online
+//   softmax runs in registers: row max and row sum over the 4 lanes of a
+//   quad (__shfl_xor_sync 1, 2), the sum kept per lane and added over
+//   the quad once, at the end.  P V goes into the warp's 16 x Dv output
+//   fragment.
+// * P reaches the A operand of P V without shared memory: a lane's
+//   accumulator holds keys 2t and 2t + 1 of each k8 step, the A fragment
+//   wants t and t + 4, so each k8 step takes its keys in the order 0, 2,
+//   4, 6 | 1, 3, 5, 7 and reads V's rows in that order (as
+//   decode_attention.cu does).
+// * Precision: the tensor cores truncate as they add, so Q K^T sums into
+//   a fresh fragment for 32 of D and each such stage is added into the
+//   fp32 scores on the CUDA cores (moe_gmm.cu, ssd.cu); P V sums one key
+//   tile into a fresh fragment, added as o = o * alpha + part.
+// * Operands are split on the fly (split_tf32: two integer ops a value)
+//   from fp32 tiles in shared memory, rows padded to 4 mod 32 floats so
+//   that every fragment load is free of bank conflicts; the Q and K
+//   fragments come in by ldmatrix, four 8 x 4 fp32 tiles an instruction
+//   (3 % faster than scalar loads at qwen's shape), V's by scalar loads
+//   (its fragments run down the columns of a row-major tile).  Q is
+//   staged once; K and V go through a two-slot cp.async ring, the next
+//   live tile in flight while this one is multiplied, with one barrier a
+//   tile.  BK = 64 keys a tile for D <= 128 (203 KB of shared memory at
+//   D = 128), 32 at D = 192 (185 KB): one block of 8 warps an SM.
+//   Unrolling the stages of Q K^T was slower (2.68 against 2.55 ms).
+// * Which tiles are live is known before the loop: the block first reads
+//   the kpos of every tile (all at once, a pass of up to 1024 tiles) and
+//   keeps a bit a tile; a tile is live when some key of it is valid and,
+//   causal, its least position is at most the block's greatest query
+//   position, and, windowed, its greatest position is less than
+//   `window` behind the block's least query position.  A dead tile is
+//   neither copied nor waited for, so causal prefill does about half the
+//   work of a dense sweep.  Inside a live tile, a warp skips a tile no
+//   row of its own can see, and masks only tiles some of whose pairs it
+//   cannot see.
+// * The grid is one-dimensional with the query tiles slowest and taken
+//   from the last: the heaviest causal tiles start first, and the grid
+//   does not end on a tail of heavy blocks.
+// * One block writes each output, in a fixed order, with no atomics and
+//   no split over T: a call is bitwise repeatable at a fixed shape.
+// On an H100 (700 W) qwen3-4b's prefill shape takes 2.55-2.59 ms here,
+// 3.1x its 3xTF32 bound (chip_smoke.py phase 2); the next step is wgmma,
+// whose 32-bit operands must be K-major in shared memory (V transposed
+// on the way in).
+//
+// A row that sees no key at all in the tiles its warp visits gets the
+// mean of v over those tiles, counting the rows past T as zeros
+// (ref.attention gives the mean over all T); no row of the LM path has
+// one, since a query always sees its own key.  A single decode token
+// (S = 1) is the work of decode_attention.cu, whose wrapper ops.attention
+// calls instead.  Ragged edges (S, T not multiples of the tiles) are
+// masked in the kernel: K/V rows past T are zero-filled by cp.async and
+// read as empty slots (kpos = -1), rows past S are computed and not
+// stored.  Nothing is padded by the wrapper.
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <climits>
 
 namespace {
 
+#include "hopper.cuh"
+
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int PASS_TILES = 1024;   // key tiles whose liveness a pass holds
 
 struct Params {
   const float* q;
@@ -73,285 +114,433 @@ struct Params {
   const int* qpos;
   const int* kpos;
   float* o;
-  int B, S, T, Hq, Hkv, g, causal, window;
+  int B, S, T, Hq, Hkv, g, causal, window, n_qt;
   float scale_log2;            // scale * log2(e)
 };
 
-__device__ __forceinline__ bool visible(int qp, int kp, const Params& p) {
-  bool ok = kp >= 0;
-  if (p.causal) ok = ok && kp <= qp;
-  if (p.window) ok = ok && (qp - kp) < p.window;
-  return ok;
-}
+// rows of a tile: 4 mod 32 floats (conflict-free fragment loads)
+constexpr int pad_ld(int width) { return width + (36 - width % 32) % 32; }
 
-// 16-byte global -> shared copy; src_bytes = 0 zero-fills the target
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
+template <int D, int DV>
+struct Cfg {
+  static constexpr int BQ = 128;                  // query rows a block
+  static constexpr int NW = BQ / 16;              // warps, 16 rows each
+  static constexpr int NT = 32 * NW;
+  static constexpr int BK = D > 128 ? 32 : 64;    // keys a tile
+  static constexpr int LDQ = pad_ld(D);           // rows of Q and K
+  static constexpr int LDV = pad_ld(DV);
+  static constexpr int NT8 = BK / 8;              // score n8 tiles a warp
+  static constexpr int KS = D / 8;                // k8 steps of Q K^T
+  static constexpr int STG = KS < 4 ? KS : 4;     // k8 steps a stage (32)
+  static constexpr int VT8 = DV / 8;              // output n8 tiles
+  static constexpr int VCH = VT8 < 8 ? VT8 : 8;   // n8 tiles a P V pass
+  static constexpr int K_FL = BK * LDQ, V_FL = BK * LDV;
+  static constexpr int SLOT_FL = K_FL + V_FL + BK;   // K, V, kpos
+  static constexpr int BYTES = 4 * (BQ * LDQ + 2 * SLOT_FL);
+  static_assert(D % 8 == 0 && DV % 8 == 0 && KS % STG == 0, "dims");
+  static_assert(VT8 % VCH == 0, "dims");
+};
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// rows [r0, r0 + R) of a [rows, H, D] tensor (row stride H * D floats,
-// `base` already offset to the head) into R x LD floats of shared
-// memory; rows >= n_rows are zero-filled
-template <int D, int LD, int R, int NT>
+// rows [r0, r0 + R) of a [rows, H, W] tensor (row stride `row_stride`
+// floats, `base` already offset to the head) into R x LD floats of
+// shared memory; rows >= n_rows are zero-filled
+template <int W, int LD, int R, int NT>
 __device__ __forceinline__ void stage_rows(float* dst, const float* base,
                                            long long row_stride, int r0,
                                            int n_rows) {
-  constexpr int V4 = D / 4;
+  constexpr int V4 = W / 4;
 #pragma unroll 4
   for (int i = threadIdx.x; i < R * V4; i += NT) {
     const int r = i / V4, c = (i - r * V4) * 4;
     const int row = r0 + r;
     const bool in = row < n_rows;
-    const float* src = in ? base + row * row_stride + c : base;
-    cp_async16(dst + r * LD + c, src, in ? 16 : 0);
+    cp_async<16>(dst + r * LD + c, in ? base + row * row_stride + c : base,
+                 in);
   }
 }
 
-__device__ __forceinline__ float fma4(float acc, float4 a, float4 b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// may some pair of (keys [kmin, kmax], queries [lo, hi]) be visible?
+// kmax < 0: no valid key; lo > hi: no query
+__device__ __forceinline__ bool tile_live(int kmin, int kmax, int lo, int hi,
+                                          const Params& p) {
+  bool live = kmax >= 0 && lo <= hi;
+  if (p.causal) live = live && kmin <= hi;
+  if (p.window)
+    live = live && static_cast<long long>(kmax) >
+                       static_cast<long long>(lo) - p.window;
+  return live;
 }
 
-__device__ __forceinline__ float comp(float4 a, int u) {
-  return u == 0 ? a.x : u == 1 ? a.y : u == 2 ? a.z : a.w;
+__device__ __forceinline__ bool visible(int qp, int kp, const Params& p) {
+  bool ok = kp >= 0;
+  if (p.causal) ok = ok && kp <= qp;
+  if (p.window) ok = ok && static_cast<long long>(qp) - kp < p.window;
+  return ok;
 }
 
-// ------------------------------------------------------------- prefill
-constexpr int BQ = 64, BK = 64, NT = 256, PLD = BK + 4;
+// four 8 x 4 fp32 tiles of shared memory in one instruction (ldmatrix of
+// 8 x 8 b16): lanes 8m .. 8m + 7 give the rows of tile m, and lane
+// (g, t) gets word t of row g of each tile, which is where the m16n8k8
+// A and B fragments want an fp32 value
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const float* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
 
-// Q and K tiles are [64][D + 4] floats, V [64][DV + 4]; at (192, 128)
-// they take 134 KB, so that instantiation runs one block an SM (and may
-// use up to 255 registers a thread) where the square ones run two.
-template <int D, int DV>
-struct PrefillSmem {
-  static constexpr int LD = D + 4;
-  static constexpr int LDV = DV + 4;
-  static constexpr int KREG = (BK * LD > BQ * PLD) ? BK * LD : BQ * PLD;
-  static constexpr int FLOATS = BQ * LD + KREG + BK * LDV;
-  static constexpr int BYTES = FLOATS * 4;
-  static constexpr int MIN_BLOCKS = 2 * BYTES <= 232448 ? 2 : 1;
-};
+__device__ __forceinline__ void split4(const unsigned (&x)[4],
+                                       unsigned (&big)[4],
+                                       unsigned (&small)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_tf32(__uint_as_float(x[i]), big[i], small[i]);
+}
+
+// the first live tile after j (n when none)
+__device__ __forceinline__ int next_live(const unsigned* bits, int j, int n) {
+  for (int i = j + 1; i < n; i = (i | 31) + 1) {
+    const unsigned w = bits[i >> 5] >> (i & 31);
+    if (w) return i + __ffs(static_cast<int>(w)) - 1;
+  }
+  return n;
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = min(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = max(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
 
 template <int D, int DV>
-__global__ void __launch_bounds__(NT, (PrefillSmem<D, DV>::MIN_BLOCKS))
+__global__ void __launch_bounds__(Cfg<D, DV>::NT, 1)
     flash_prefill_kernel(Params p) {
-  constexpr int LD = PrefillSmem<D, DV>::LD;
-  constexpr int LDV = PrefillSmem<D, DV>::LDV;
-  constexpr int DC = DV / 16;               // accumulator columns / thread
-  constexpr bool VEC = (DC % 4) == 0;       // float4 columns (Dv = 64, 128)
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);      // [BQ][LD]
-  float* Ks = Qs + BQ * LD;                         // [BK][LD], then P
-  float* Vs = Ks + PrefillSmem<D, DV>::KREG;        // [BK][LDV]
-  float* Ps = Ks;                                   // [BQ][PLD]
-  __shared__ int qp_s[BQ];
-  __shared__ int kp_s[BK];
-  __shared__ int q_lo, q_hi, tile_live;
+  using C = Cfg<D, DV>;
+  constexpr int BK = C::BK, NW = C::NW, NT = C::NT, LDQ = C::LDQ,
+                LDV = C::LDV, NT8 = C::NT8;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ unsigned live_bits[PASS_TILES / 32];
+  __shared__ int wq_lo[NW], wq_hi[NW];
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int s0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  int bid = blockIdx.x;                  // (head fastest, batch, q tile)
+  const int h = bid % p.Hq;
+  bid /= p.Hq;
+  const int b = bid % p.B;
+  const int s0 = (p.n_qt - 1 - bid / p.B) * C::BQ;   // last tiles first
   const int kh = h / p.g;
-  const long long q_stride = static_cast<long long>(p.Hq) * D;
   const long long k_stride = static_cast<long long>(p.Hkv) * D;
   const long long v_stride = static_cast<long long>(p.Hkv) * DV;
-  const float* qb = p.q + (static_cast<long long>(b) * p.S * p.Hq + h) * D;
   const float* kb = p.k + (static_cast<long long>(b) * p.T * p.Hkv + kh) * D;
-  const float* vb = p.v + (static_cast<long long>(b) * p.T * p.Hkv + kh) * DV;
+  const float* vb =
+      p.v + (static_cast<long long>(b) * p.T * p.Hkv + kh) * DV;
+  float* Qs = sm;                                    // [BQ][LDQ]
+  float* ring = sm + C::BQ * LDQ;                    // 2 x (K, V, kpos)
 
-  stage_rows<D, LD, BQ, NT>(Qs, qb, q_stride, s0, p.S);
-  if (tid < BQ) qp_s[tid] = s0 + tid < p.S ? p.qpos[s0 + tid] : 0;
-  cp_async_wait_all();
+  stage_rows<D, LDQ, C::BQ, NT>(
+      Qs, p.q + (static_cast<long long>(b) * p.S * p.Hq + h) * D,
+      static_cast<long long>(p.Hq) * D, s0, p.S);
+  cp_async_commit();
+
+  // this lane's rows (g and g + 8 of the warp's 16) and the warp's and
+  // block's query position ranges over the rows that exist
+  const int row0 = s0 + 16 * warp + g, row1 = row0 + 8;
+  const int qp0 = row0 < p.S ? p.qpos[row0] : 0;
+  const int qp1 = row1 < p.S ? p.qpos[row1] : 0;
+  int wlo = min(row0 < p.S ? qp0 : INT_MAX, row1 < p.S ? qp1 : INT_MAX);
+  int whi = max(row0 < p.S ? qp0 : INT_MIN, row1 < p.S ? qp1 : INT_MIN);
+  wlo = warp_min(wlo);
+  whi = warp_max(whi);
+  if (lane == 0) {
+    wq_lo[warp] = wlo;
+    wq_hi[warp] = whi;
+  }
   __syncthreads();
-  if (tid < 32) {                      // the block's query position range
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int r = tid; r < BQ; r += 32) {
-      if (s0 + r < p.S) {
-        lo = min(lo, qp_s[r]);
-        hi = max(hi, qp_s[r]);
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    if (tid == 0) {
-      q_lo = lo;
-      q_hi = hi;
-    }
+  int q_lo = INT_MAX, q_hi = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    q_lo = min(q_lo, wq_lo[w]);
+    q_hi = max(q_hi, wq_hi[w]);
   }
 
-  float m[4], l[4], acc[4][DC];
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float o[C::VT8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int n = 0; n < C::VT8; ++n)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
+    for (int r = 0; r < 4; ++r) o[n][r] = 0.f;
 
-  for (int t0 = 0; t0 < p.T; t0 += BK) {
-    if (tid < BK) kp_s[tid] = t0 + tid < p.T ? p.kpos[t0 + tid] : -1;
-    __syncthreads();
-    if (tid < 32) {                    // is any key of the tile live?
-      const int a = kp_s[tid], c = kp_s[tid + 32];
-      int kmin = min(a >= 0 ? a : INT_MAX, c >= 0 ? c : INT_MAX);
-      int kmax = max(a, c);
-      for (int off = 16; off > 0; off >>= 1) {
-        kmin = min(kmin, __shfl_xor_sync(0xffffffffu, kmin, off));
-        kmax = max(kmax, __shfl_xor_sync(0xffffffffu, kmax, off));
-      }
-      if (tid == 0) {
-        bool live = kmax >= 0;
-        if (p.causal) live = live && kmin <= q_hi;
-        if (p.window)
-          live = live && static_cast<long long>(kmax) >
-                             static_cast<long long>(q_lo) - p.window;
-        tile_live = live;
-      }
-    }
-    __syncthreads();
-    if (!tile_live) continue;          // uniform over the block
-
-    stage_rows<D, LD, BK, NT>(Ks, kb, k_stride, t0, p.T);
+  // K, V and kpos of tile j into ring slot `slot`, one copy group
+  auto issue = [&](int j, int slot) {
+    float* Ks = ring + slot * C::SLOT_FL;
+    float* Vs = Ks + C::K_FL;
+    float* kps = Vs + C::V_FL;
+    const int t0 = j * BK;
+    stage_rows<D, LDQ, BK, NT>(Ks, kb, k_stride, t0, p.T);
     stage_rows<DV, LDV, BK, NT>(Vs, vb, v_stride, t0, p.T);
-    cp_async_wait_all();
-    __syncthreads();
-
-    // scores: rows 4*ty + i, keys tx + 16*j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fma4(s[i][j], qv[i], kv[j]);
+    for (int u = tid; u < BK; u += NT) {
+      if (t0 + u < p.T)
+        cp_async<4>(kps + u, reinterpret_cast<const float*>(p.kpos) + t0 + u,
+                    true);
+      else
+        reinterpret_cast<int*>(kps)[u] = -1;
     }
-    int kp[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kp[j] = kp_s[tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = qp_s[4 * ty + i];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = visible(q_pos, kp[j], p) ? s[i][j] * p.scale_log2 : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = exp2f(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();                   // every thread is done with Ks
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(4 * ty + i) * PLD + tx + 16 * j] = s[i][j];
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // acc += P @ V: rows 4*ty + i; columns 4*tx + 64*hh + e (VEC) or
-    // tx + 16*c
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pv[4];
+  const int n_tiles = (p.T + BK - 1) / BK;
+  for (int p0 = 0; p0 < n_tiles; p0 += PASS_TILES) {
+    const int n = min(PASS_TILES, n_tiles - p0);
+    // one bit a live tile of this pass: a warp takes 4 tiles at a time,
+    // their kpos loads all in flight together
+    for (int i = tid; i < PASS_TILES / 32; i += NT) live_bits[i] = 0u;
+    __syncthreads();
+    for (int j0 = warp; j0 < n; j0 += 4 * NW) {
+      int kp[4][BK / 32];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (4 * ty + i) * PLD + kk);
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < BK / 32; ++e) {
+          const int j = j0 + u * NW;
+          const int tk = (p0 + j) * BK + 32 * e + lane;
+          kp[u][e] = j < n && tk < p.T ? __ldg(p.kpos + tk) : -1;
+        }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vrow = Vs + (kk + u) * LDV;
-        float vv[DC];
-        if constexpr (VEC) {
+        int kmin = INT_MAX, kmax = -1;
 #pragma unroll
-          for (int hh = 0; hh < DC / 4; ++hh) {
-            const float4 t = *reinterpret_cast<const float4*>(
-                vrow + 4 * tx + 64 * hh);
-            vv[4 * hh] = t.x;
-            vv[4 * hh + 1] = t.y;
-            vv[4 * hh + 2] = t.z;
-            vv[4 * hh + 3] = t.w;
+        for (int e = 0; e < BK / 32; ++e) {
+          if (kp[u][e] >= 0) kmin = min(kmin, kp[u][e]);
+          kmax = max(kmax, kp[u][e]);
+        }
+        kmin = warp_min(kmin);
+        kmax = warp_max(kmax);
+        const int j = j0 + u * NW;
+        if (lane == 0 && j < n && tile_live(kmin, kmax, q_lo, q_hi, p))
+          atomicOr(&live_bits[j >> 5], 1u << (j & 31));
+      }
+    }
+    __syncthreads();
+
+    int cur = next_live(live_bits, -1, n), slot = 0;
+    if (cur < n) issue(p0 + cur, 0);
+    while (cur < n) {
+      const int nxt = next_live(live_bits, cur, n);
+      cp_async_wait<0>();
+      __syncthreads();            // tile cur is in; the other slot is free
+      if (nxt < n) issue(p0 + nxt, slot ^ 1);
+      const float* Ks = ring + slot * C::SLOT_FL;
+      const float* Vs = Ks + C::K_FL;
+      const int* kps = reinterpret_cast<const int*>(Vs + C::V_FL);
+      cur = nxt;
+      slot ^= 1;
+
+      // can any row of this warp see a key of the tile?  all of them?
+      int kmin = INT_MAX, kmax = -1;
+      bool all = true;
+#pragma unroll
+      for (int e = 0; e < BK / 32; ++e) {
+        const int kp = kps[32 * e + lane];
+        if (kp >= 0) kmin = min(kmin, kp);
+        kmax = max(kmax, kp);
+        all = all && kp >= 0;
+      }
+      kmin = warp_min(kmin);
+      kmax = warp_max(kmax);
+      all = __all_sync(0xffffffffu, all);
+      if (!tile_live(kmin, kmax, wlo, whi, p)) continue;  // uniform
+      bool full = all;
+      if (p.causal) full = full && kmax <= wlo;
+      if (p.window)
+        full = full && static_cast<long long>(whi) - kmin < p.window;
+
+      // S = Q K^T: this warp's 16 rows x BK keys, 3xTF32, each stage of
+      // 32 of D summed in a fresh fragment and added in fp32
+      float s[NT8][4];
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
+      // ldmatrix rows: Q's tiles (rows 0-7 | 8-15) x (d k.. | k+4..),
+      // K's (keys nt*8.. | (nt+1)*8..) x (d k.. | k+4..)
+      const int lm = lane >> 3, lr = lane & 7;
+      const float* qrow = Qs + (16 * warp + lr + 8 * (lm & 1)) * LDQ
+                          + 4 * (lm >> 1);
+      const float* krow = Ks + (lr + 8 * (lm >> 1)) * LDQ + 4 * (lm & 1);
+#pragma unroll 1
+      for (int k0 = 0; k0 < D; k0 += 8 * C::STG) {
+        float part[NT8][4];
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) part[nt][r] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < C::STG; ++ks) {
+          const int k = k0 + 8 * ks;
+          unsigned x[4], ab[4], as[4];
+          ldsm4(x, qrow + k);              // (g, t) (g+8, t) (g, t+4) (g+8, t+4)
+          split4(x, ab, as);
+          unsigned bb[NT8][2], bs[NT8][2];
+#pragma unroll
+          for (int nt = 0; nt < NT8; nt += 2) {   // K[key][d], two n8 tiles
+            unsigned y[4], yb[4], ys[4];
+            ldsm4(y, krow + nt * 8 * LDQ + k);    // (t, g) (t+4, g) of each
+            split4(y, yb, ys);
+            bb[nt][0] = yb[0];
+            bb[nt][1] = yb[1];
+            bb[nt + 1][0] = yb[2];
+            bb[nt + 1][1] = yb[3];
+            bs[nt][0] = ys[0];
+            bs[nt][1] = ys[1];
+            bs[nt + 1][0] = ys[2];
+            bs[nt + 1][1] = ys[3];
           }
-        } else {
 #pragma unroll
-          for (int c = 0; c < DC; ++c) vv[c] = vrow[tx + 16 * c];
+          for (int nt = 0; nt < NT8; ++nt) mma(part[nt], as, bb[nt]);
+#pragma unroll
+          for (int nt = 0; nt < NT8; ++nt) mma(part[nt], ab, bs[nt]);
+#pragma unroll
+          for (int nt = 0; nt < NT8; ++nt) mma(part[nt], ab, bb[nt]);
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pi = comp(pv[i], u);
+        for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
-          for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pi, vv[c], acc[i][c]);
+          for (int r = 0; r < 4; ++r) s[nt][r] += part[nt][r];
+      }
+
+      // scale and mask; lane holds rows g (r = 0, 1) and g + 8 (r = 2,
+      // 3), keys nt * 8 + 2t (r = 0, 2) and + 1 (r = 1, 3)
+      const float c = p.scale_log2;
+      if (full) {
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) s[nt][r] *= c;
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt) {
+          const int2 kk = *reinterpret_cast<const int2*>(kps + nt * 8 + 2 * t);
+          s[nt][0] = visible(qp0, kk.x, p) ? s[nt][0] * c : NEG_INF;
+          s[nt][1] = visible(qp0, kk.y, p) ? s[nt][1] * c : NEG_INF;
+          s[nt][2] = visible(qp1, kk.x, p) ? s[nt][2] * c : NEG_INF;
+          s[nt][3] = visible(qp1, kk.y, p) ? s[nt][3] * c : NEG_INF;
+        }
+      }
+
+      // online softmax, base 2: row max over the quad, p in place
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) {
+        s[nt][0] = exp2f(s[nt][0] - mn0);
+        s[nt][1] = exp2f(s[nt][1] - mn0);
+        s[nt][2] = exp2f(s[nt][2] - mn1);
+        s[nt][3] = exp2f(s[nt][3] - mn1);
+        ls0 += s[nt][0] + s[nt][1];
+        ls1 += s[nt][2] + s[nt][3];
+      }
+      l0 = l0 * al0 + ls0;
+      l1 = l1 * al1 + ls1;
+
+      // o = o * alpha + P V, VCH n8 tiles of Dv a pass; k8 step kk takes
+      // keys kk*8 + {0, 2, 4, 6 | 1, 3, 5, 7}: P straight from s
+#pragma unroll
+      for (int c0 = 0; c0 < C::VT8; c0 += C::VCH) {
+        float part[C::VCH][4];
+#pragma unroll
+        for (int nt = 0; nt < C::VCH; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) part[nt][r] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < NT8; ++kk) {
+          unsigned ab[4], as[4];
+          split_tf32(s[kk][0], ab[0], as[0]);   // (g, key 2t)
+          split_tf32(s[kk][2], ab[1], as[1]);   // (g+8, key 2t)
+          split_tf32(s[kk][1], ab[2], as[2]);   // (g, key 2t+1)
+          split_tf32(s[kk][3], ab[3], as[3]);   // (g+8, key 2t+1)
+          unsigned bb[C::VCH][2], bs[C::VCH][2];
+          const float* vrow = Vs + (kk * 8 + 2 * t) * LDV + c0 * 8 + g;
+#pragma unroll
+          for (int nt = 0; nt < C::VCH; ++nt) {             // V[key][col]
+            split_tf32(vrow[nt * 8], bb[nt][0], bs[nt][0]);
+            split_tf32(vrow[nt * 8 + LDV], bb[nt][1], bs[nt][1]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < C::VCH; ++nt) mma(part[nt], as, bb[nt]);
+#pragma unroll
+          for (int nt = 0; nt < C::VCH; ++nt) mma(part[nt], ab, bs[nt]);
+#pragma unroll
+          for (int nt = 0; nt < C::VCH; ++nt) mma(part[nt], ab, bb[nt]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < C::VCH; ++nt) {
+          o[c0 + nt][0] = o[c0 + nt][0] * al0 + part[nt][0];
+          o[c0 + nt][1] = o[c0 + nt][1] * al0 + part[nt][1];
+          o[c0 + nt][2] = o[c0 + nt][2] * al1 + part[nt][2];
+          o[c0 + nt][3] = o[c0 + nt][3] * al1 + part[nt][3];
         }
       }
     }
+    __syncthreads();              // the bits and the ring are free again
   }
+  cp_async_wait<0>();             // Q, when no tile was live
 
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  const long long ostride = static_cast<long long>(p.Hq) * DV;
+  float* ob = p.o + (static_cast<long long>(b) * p.S * p.Hq + h) * DV + 2 * t;
+  if (row0 < p.S) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float sum = l[i];
+    for (int nt = 0; nt < C::VT8; ++nt)
+      *reinterpret_cast<float2*>(ob + row0 * ostride + nt * 8) =
+          make_float2(o[nt][0] * i0, o[nt][1] * i0);
+  }
+  if (row1 < p.S) {
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const int s = s0 + 4 * ty + i;
-    if (s >= p.S) continue;
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
-    float* orow = p.o + (static_cast<long long>(b * p.S + s) * p.Hq + h) * DV;
-    if constexpr (VEC) {
-#pragma unroll
-      for (int hh = 0; hh < DC / 4; ++hh)
-        *reinterpret_cast<float4*>(orow + 4 * tx + 64 * hh) =
-            make_float4(acc[i][4 * hh] * inv, acc[i][4 * hh + 1] * inv,
-                        acc[i][4 * hh + 2] * inv, acc[i][4 * hh + 3] * inv);
-    } else {
-#pragma unroll
-      for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
-    }
+    for (int nt = 0; nt < C::VT8; ++nt)
+      *reinterpret_cast<float2*>(ob + row1 * ostride + nt * 8) =
+          make_float2(o[nt][2] * i1, o[nt][3] * i1);
   }
 }
 
-// more than 48 KB of dynamic shared memory must be allowed per kernel
-// (and per device, so it is set at every launch: ~1 us of host time)
+// more than 48 KB of dynamic shared memory is allowed once per kernel and
+// device (hopper.cuh allow_smem), not at every launch
 template <int D, int DV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = PrefillSmem<D, DV>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_prefill_kernel<D, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  using C = Cfg<D, DV>;
+  cudaError_t e = allow_smem<flash_prefill_kernel<D, DV>>(C::BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid((p.S + BQ - 1) / BQ, p.Hq, p.B);
-  flash_prefill_kernel<D, DV><<<grid, NT, bytes, stream>>>(p);
+  Params q = p;
+  q.n_qt = (p.S + C::BQ - 1) / C::BQ;
+  const long long blocks = static_cast<long long>(q.n_qt) * p.B * p.Hq;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  flash_prefill_kernel<D, DV><<<static_cast<unsigned>(blocks), C::NT,
+                                C::BYTES, stream>>>(q);
   return cudaGetLastError();
 }
 
@@ -369,8 +558,10 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    int causal, int window, float scale,
                                    void* stream) {
   if (B == 0 || S == 0) return 0;
+  if (T <= 0 || Hkv <= 0 || Hq % Hkv)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, qpos, kpos, out, B, S, T, Hq, Hkv, Hq / Hkv,
-           causal, window, scale * LOG2E};
+           causal, window, 0, scale * LOG2E};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (D == 16 && Dv == 16) e = launch<16, 16>(p, st);

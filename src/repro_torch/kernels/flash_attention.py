@@ -2,8 +2,9 @@
 (``S > 1``; source: ``csrc/flash_attention.cu``; replaces
 ``repro/kernels/flash_attention.py:98``).  Computes ``ref.attention``
 within the port's tolerance, for ``Dv == D`` and for the materialized
-MLA prefill's ``(D, Dv) = (192, 128)``.  A single decode token goes to
-``kernels/decode_attention.py``."""
+MLA prefill's ``(D, Dv) = (192, 128)``, as 3xTF32 products on the
+tensor cores; bitwise repeatable at a fixed shape.  A single decode
+token goes to ``kernels/decode_attention.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -16,6 +17,7 @@ launches = _build.LaunchCount("flash_attention")
 
 # the kernel's (D, Dv) instantiations
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
+BLOCK_Q = 128         # query rows a block (Cfg::BQ in the source)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,7 +59,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dtype != torch.int32 or tuple(t.shape) != (n,):
             raise ValueError(f"flash_attention: {name} must be [{n}] int32, "
                              f"got {tuple(t.shape)} {t.dtype}")
-    if B > 65535 or Hq > 65535 or B * S >= 2 ** 31:
+    if -(-S // BLOCK_Q) * B * Hq >= 2 ** 31 or B * S >= 2 ** 31:
         raise ValueError(f"flash_attention: B={B}, Hq={Hq}, S={S} exceed "
                          "the kernel's grid or row index")
     out = torch.empty((B, S, Hq, Dv), dtype=q.dtype, device=dev)

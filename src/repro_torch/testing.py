@@ -189,6 +189,141 @@ def ssd_chunk_parallel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y[:, :S], h
 
 
+def _tile_live(kp: torch.Tensor, lo: int, hi: int, causal: bool,
+               window: int) -> bool:
+    """The CUDA ``flash_attention``'s test of a key tile against a range
+    of query positions ``[lo, hi]`` (``lo > hi``: no query): some key
+    valid, its least valid position at most ``hi`` if causal, its
+    greatest more than ``window`` behind ``lo`` if windowed."""
+    ok = kp[kp >= 0]
+    if lo > hi or ok.numel() == 0:
+        return False
+    live = True
+    if causal:
+        live = live and int(ok.min()) <= hi
+    if window:
+        live = live and int(ok.max()) > lo - window
+    return live
+
+
+def flash_attention_tiles(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, qpos: torch.Tensor,
+                          kpos: torch.Tensor, *, causal: bool = True,
+                          window: int = 0, scale: Optional[float] = None,
+                          passes: Optional[int] = 3) -> torch.Tensor:
+    """A plain model of the CUDA ``flash_attention``'s order of work
+    (``csrc/flash_attention.cu``): blocks of 128 query rows, warps of
+    16; key tiles of 64 keys (32 at D > 128) visited in order, a tile
+    skipped unless it is live for the block's and for the warp's query
+    positions (``_tile_live``), K/V rows past T read as zeros with ``kpos
+    = -1``; in each tile S = Q K^T summed by stages of 32 of D, each
+    stage a product of its own added in float32, then multiplied by
+    ``scale * log2 e`` and masked to -1e30;
+    the online softmax in base 2; P V one product a tile, added as ``o =
+    o * alpha + part``.  ``passes`` takes the products by ``matmul_tf32``
+    (3: the kernel's 3xTF32), else (None) in the inputs' precision.  Same
+    arguments and result as ``ref.attention``."""
+    mm = torch.matmul if passes is None else \
+        (lambda a, b: matmul_tf32(a, b, passes))
+    B, S, Hq, D = q.shape
+    T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    g = Hq // Hkv
+    block_q, warp_rows, stage = 128, 16, 32
+    bk = 32 if D > 128 else 64
+    c = (D ** -0.5 if scale is None else scale) * math.log2(math.e)
+    n_tiles = -(-T // bk)
+    pad = n_tiles * bk - T
+    kh = F.pad(k, (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)   # [B,Hkv,T',D]
+    vh = F.pad(v, (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
+    kp = F.pad(kpos.to(torch.int64), (0, pad), value=-1)
+    qp = qpos.to(torch.int64)
+    qg = q.reshape(B, S, Hkv, g, D).permute(0, 2, 3, 1, 4)    # [B,Hkv,g,S,D]
+    vis = ref.visible(qp, kp, causal, window).expand(S, -1)   # [S, T']
+    out = torch.zeros((B, Hkv, g, S, Dv), dtype=q.dtype, device=q.device)
+    for s0 in range(0, S, block_q):
+        b_rows = qp[s0:min(S, s0 + block_q)]
+        b_lo, b_hi = int(b_rows.min()), int(b_rows.max())
+        for r0 in range(s0, min(S, s0 + block_q), warp_rows):
+            rows = slice(r0, min(S, r0 + warp_rows))
+            w_lo, w_hi = int(qp[rows].min()), int(qp[rows].max())
+            qs = qg[:, :, :, rows]
+            n = qs.shape[3]
+            m = torch.full((B, Hkv, g, n), ref.NEG_INF, dtype=q.dtype)
+            l = torch.zeros((B, Hkv, g, n), dtype=q.dtype)
+            o = torch.zeros((B, Hkv, g, n, Dv), dtype=q.dtype)
+            for j in range(n_tiles):
+                keys = slice(j * bk, (j + 1) * bk)
+                if not (_tile_live(kp[keys], b_lo, b_hi, causal, window)
+                        and _tile_live(kp[keys], w_lo, w_hi, causal,
+                                       window)):
+                    continue
+                kt = kh[:, :, None, keys]                     # [B,Hkv,1,bk,D]
+                sc = sum(mm(qs[..., d0:d0 + stage],
+                            kt[..., d0:d0 + stage].transpose(-1, -2))
+                         for d0 in range(0, D, stage))
+                sc = torch.where(vis[rows, keys], sc * c,
+                                 torch.full_like(sc, ref.NEG_INF))
+                m_new = torch.maximum(m, sc.amax(-1))
+                p = torch.exp2(sc - m_new[..., None])
+                alpha = torch.exp2(m - m_new)
+                l = l * alpha + p.sum(-1)
+                o = o * alpha[..., None] + mm(p, vh[:, :, None, keys])
+                m = m_new
+            out[:, :, :, rows] = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, Dv)
+
+
+def gather_plan(P: int, C: int, L: int, cap: int) -> dict:
+    """The CUDA ``window_gather``'s launch (``csrc/window_gather.cu``):
+    ``vec`` (a float4 of output a thread, when ``L % 4 == 0``), threads
+    a block (256, or the row's units rounded up to a warp), chunks of a
+    (row, channel), blocks, and ``wrap`` (``L > cap``: the exact modulo
+    per element instead of one subtraction)."""
+    vec = L % 4 == 0
+    units = L // 4 if vec else L
+    threads = 256 if units >= 256 else -(-units // 32) * 32
+    chunks = -(-units // threads)
+    return {"vec": vec, "threads": threads, "chunks": chunks,
+            "blocks": P * C * chunks, "wrap": L > cap,
+            "per_block": (4 if vec else 1) * threads}
+
+
+def window_gather_runs(buf: torch.Tensor, patients: torch.Tensor,
+                       ends: torch.Tensor, valid: torch.Tensor,
+                       L: int) -> torch.Tensor:
+    """A plain model of the CUDA ``window_gather``'s plan
+    (``gather_plan``): each (row, channel) cut into chunks of
+    ``per_block`` outputs; a chunk's first ring position reduced mod
+    ``cap`` once (floor-mod, in 64 bits); inside the chunk, when ``L <=
+    cap``, the wrap is one subtraction (checked: it always lands in
+    ``[0, cap)``), else the exact modulo; outputs before ``L - valid``
+    zero without a read.  Same arguments and result as
+    ``ref.window_gather``."""
+    P, C, cap = patients.shape[0], buf.shape[1], buf.shape[2]
+    plan = gather_plan(P, C, L, cap)
+    out = torch.zeros((P, C, L), dtype=buf.dtype, device=buf.device)
+    ends64, pts = ends.to(torch.int64), patients.to(torch.int64)
+    zero_before = (L - valid.to(torch.int64))[:, None]
+    chan = torch.arange(C, device=buf.device)[None, :, None]
+    for ch in range(plan["chunks"]):
+        j0 = ch * plan["per_block"]
+        jj = torch.arange(j0, min(L, j0 + plan["per_block"]),
+                          device=buf.device)
+        first = torch.remainder(ends64 - L + j0, cap)[:, None]   # [P, 1]
+        pos = first + (jj - j0)[None, :]
+        if plan["wrap"]:
+            pos = torch.remainder(pos, cap)
+        else:
+            pos = torch.where(pos >= cap, pos - cap, pos)
+            assert bool(((pos >= 0) & (pos < cap)).all()), "two wraps"
+        keep = jj[None, :] >= zero_before                         # [P, n]
+        vals = buf[pts[:, None, None], chan,
+                   torch.where(keep, pos, 0)[:, None, :]]
+        out[:, :, j0:j0 + len(jj)] = torch.where(
+            keep[:, None, :], vals, torch.zeros((), dtype=buf.dtype))
+    return out
+
+
 def decode_score_parts(D: int, path: str) -> List[Tuple[int, int]]:
     """The column ranges of D whose partial ``q . k`` the CUDA
     ``decode_attention`` sums, in this order: on the CUDA cores one

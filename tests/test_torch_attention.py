@@ -6,6 +6,9 @@
   ``tests/test_kernels.py``, within the one tolerance of
   ``repro_torch.testing``;
 * the plain ``decode_attention`` oracle against JAX's;
+* the plain models of the CUDA kernels' order of work
+  (``flash_attention_tiles``, ``decode_attention_pieces``) against JAX's
+  oracles and the Pallas kernels in interpret mode;
 * what the oracles give a row that sees no key (the uniform mean of v);
 * the ``ops`` dispatch: CPU tensors run the plain versions, and the CUDA
   kernel's wrapper refuses them.
@@ -25,7 +28,8 @@ from repro.kernels.flash_attention import flash_attention as pl_flash
 from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops, ref
-from repro_torch.testing import assert_close, decode_attention_pieces
+from repro_torch.testing import (assert_close, decode_attention_pieces,
+                                 flash_attention_tiles)
 
 torch.set_num_threads(1)
 
@@ -199,3 +203,52 @@ def test_decode_merge_order_model_gives_zeros_without_a_visible_key():
     assert torch.equal(got, torch.zeros_like(got))
     assert_close(got, pl_decode(*_j(q[:, 0], k, v, kpos), jnp.asarray(50),
                                 block_k=16, interpret=True))
+
+
+# (B, S, T, Hq, Hkv, D, Dv, causal, window): the CUDA flash_attention's
+# order of work (blocks of 128 query rows, warps of 16, key tiles of 64 or
+# 32 at D = 192, tile skips, 3xTF32 products in stages of 32 of D) at
+# D = 128 and (192, 128), S and T off the tiles, a window, g = 1 and 4
+TILE_CASES = [
+    (1, 150, 150, 4, 1, 128, 128, True, 0),       # g = 4, two q blocks
+    (2, 70, 90, 2, 2, 192, 128, True, 0),         # MLA widths, S < T
+    (1, 140, 140, 4, 4, 64, 64, True, 40),        # window, g = 1
+    (1, 33, 70, 8, 2, 32, 32, False, 0),          # not causal
+    (1, 200, 260, 2, 1, 16, 16, True, 24),        # window cuts k8 steps
+]
+
+
+@pytest.mark.parametrize("case", TILE_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_flash_tile_model_matches_jax_and_pallas(case):
+    B, S, T, Hq, Hkv, D, Dv, causal, window = case
+    q, k, _ = _qkv(B, S, T, Hq, Hkv, D)
+    v = np.random.default_rng(1).standard_normal((B, T, Hkv, Dv)).astype(
+        np.float32)
+    qpos = np.arange(T - S, T, dtype=np.int32)
+    kpos = np.arange(T, dtype=np.int32)
+    got = flash_attention_tiles(*_t(q, k, v, qpos, kpos), causal=causal,
+                                window=window)
+    assert tuple(got.shape) == (B, S, Hq, Dv)
+    assert_close(got, jref.attention(*_j(q, k, v, qpos, kpos),
+                                     causal=causal, window=window))
+    if Dv == D:                  # the Pallas kernel takes v of q's width
+        assert_close(got, pl_flash(*_j(q, k, v, qpos, kpos), causal=causal,
+                                   window=window, block_q=64, block_k=64,
+                                   interpret=True))
+
+
+def test_flash_tile_model_skips_what_no_row_of_a_warp_sees():
+    """Keys in the future of the first warp's 16 rows and in the past of
+    the second's: the first warp skips every tile, so its rows get zeros
+    (the kernel's, ``tests/test_torch_cuda.py``); the second's match the
+    oracle.  The oracles give the first rows the mean of v."""
+    q, k, v = _qkv(1, 32, 64, 2, 1, 32)
+    qpos = np.concatenate([np.arange(16), np.arange(100, 116)]).astype(
+        np.int32)
+    kpos = (np.arange(64) + 100).astype(np.int32)
+    got = flash_attention_tiles(*_t(q, k, v, qpos, kpos))
+    assert torch.equal(got[:, :16], torch.zeros_like(got[:, :16]))
+    want = jref.attention(*_j(q, k, v, qpos, kpos))
+    assert_close(got[:, 16:], np.asarray(want)[:, 16:])
+    assert_close(np.asarray(want)[0, 0, 0], v[0].mean(0)[0])

@@ -8,9 +8,13 @@ on a machine that has only PyTorch:
 
 The conv cases are the ones ``tests/test_torch_kernels.py`` holds the
 plain versions to against the JAX package, and the mamba short conv
-(depthwise, K = 4, CAUSAL); the ``flash_attention`` cases cover causal
-and windowed prefill, ragged ``S``/``T`` and the materialized MLA
-prefill (D = 192, Dv = 128); the ``decode_attention`` cases empty cache
+(depthwise, K = 4, CAUSAL); the ``window_gather`` cases its scalar and
+float4 paths, a wrap inside a float4, ``L = cap`` and ``L > cap``; the
+``flash_attention`` cases cover causal and windowed prefill, ragged
+``S``/``T``, every (D, Dv) instantiation with the materialized MLA
+prefill (D = 192, Dv = 128), g = 3, several query blocks and two passes
+of key-tile liveness, each also bitwise repeatable; the
+``decode_attention`` cases empty cache
 slots, a partly filled ring, the rolled ring of a windowed decode, ``g``
 in {1, 3, 4, 16, 48}, the materialized MLA step (192 / 128) and the
 absorbed one (576 / 512, v a strided view of k's rows); the ``ssd``
@@ -69,6 +73,15 @@ GATHER_CASES = [
     (4, 3, 37, 16, [0, 3, 2, 1, 3], [40, 0, 33, 7, -5], [16, 0, 9, 7, 16]),
     (2, 7, 64, 30, [1, 0, 1], [63, 29, 10], [30, 1, 30]),
     (2, 3, 16384, 7500, [1, 0], [16000, 100], [7500, 4200]),
+    # the redesign's paths: scalar (L % 4 != 0) and float4 stores, a wrap
+    # inside a float4, several chunks a row, L = cap, L > cap, odd caps
+    (3, 2, 50, 21, [2, 0, 1], [10, 49, 70], [21, 5, 0]),
+    (2, 2, 37, 16, [1, 0], [51, 14], [16, 16]),
+    (1, 2, 3000, 2100, [0], [1502], [2100]),
+    (2, 3, 40, 40, [0, 1, 1], [7, 40, 0], [40, 13, 40]),
+    (2, 2, 24, 40, [1, 0], [5, 30], [40, 25]),
+    (2, 1, 10, 33, [0, 1], [3, -7], [33, 20]),
+    (2, 3, 7501, 7500, [0, 1], [7000, 7501], [7500, 7499]),
 ]
 
 
@@ -105,15 +118,35 @@ def test_cuda_conv_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", GATHER_CASES, ids=lambda c: f"cap{c[2]}")
+@pytest.mark.parametrize("case", GATHER_CASES,
+                         ids=lambda c: f"cap{c[2]}-L{c[3]}")
 def test_cuda_window_gather_bitwise(cuda_device, case):
     N, C, cap, L, pts, ends, valid = case
     buf = torch.from_numpy(np.random.default_rng(cap).standard_normal(
         (N, C, cap)).astype(np.float32)).to(cuda_device)
     idx = [torch.tensor(a, dtype=torch.int32, device=cuda_device)
            for a in (pts, ends, valid)]
+    before = kgather.launches.value
     assert_bitwise(kgather.window_gather(buf, *idx, L),
                    ref.window_gather(buf, *idx, L))
+    assert kgather.launches.value == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_window_gather_checks_its_inputs(cuda_device):
+    buf = torch.zeros((2, 3, 16), device=cuda_device)
+    i = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    kgather.window_gather(buf, i, i, i, 8)             # the shape's plan
+    with pytest.raises(ValueError, match="int32"):
+        kgather.window_gather(buf, i.long(), i, i, 8)
+    with pytest.raises(ValueError, match="float32"):
+        kgather.window_gather(buf.double(), i, i, i, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kgather.window_gather(buf.transpose(0, 1), i, i, i, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kgather.window_gather(buf, i.cpu(), i, i, 8)
+    with pytest.raises(ValueError, match=r"\[2\] int32"):
+        kgather.window_gather(buf, i, i[:1], i, 8)
 
 
 # (B, L, C, K, stride, padding): depthwise (groups = C), the mamba short
@@ -218,6 +251,19 @@ ATTN_CASES = [
     (2, 130, 130, 8, 2, 128, True, 0, 130, 0),      # D = 128, g = 4
     (2, 70, 70, 4, 4, 192, True, 0, 70, 0),         # MLA: Dv = 128
     (1, 129, 129, 2, 2, 192, True, 48, 129, 0),     # MLA, window
+    # the redesign: every (D, Dv) instantiation above ((16, 16) .. (192,
+    # 128)); S and T off 16; a window edge and empty slots inside a k8
+    # step; Hq = 15, g = 3; rows of several query blocks; the liveness
+    # of more than one pass of 1024 key tiles, and a pass with none live
+    (1, 37, 53, 4, 2, 32, True, 0, 53, 0),          # S, T off 16
+    (1, 100, 100, 2, 1, 64, True, 13, 100, 0),      # window cuts k8 steps
+    (1, 60, 77, 4, 4, 64, True, 0, 70, 5),          # empty slots, rolled
+    (2, 100, 100, 15, 5, 64, True, 0, 100, 0),      # Hq = 15, g = 3
+    (1, 300, 300, 4, 1, 128, True, 0, 300, 0),      # 3 query blocks, g = 4
+    (1, 150, 170, 4, 2, 192, True, 0, 170, 0),      # MLA, ragged, g = 2
+    (1, 64, 64, 2, 2, 32, False, 20, 64, 0),        # window, not causal
+    (1, 40, 70000, 2, 1, 16, True, 0, 70000, 0),    # two passes
+    (1, 40, 70000, 2, 1, 16, True, 3000, 70000, 0),  # first pass dead
 ]
 
 # decode steps (S = 1), the same fields; the first four were the S = 1
@@ -318,17 +364,39 @@ def test_cuda_flash_attention_checks_its_inputs(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [ATTN_CASES[0], ATTN_CASES[6],
+                                  ATTN_CASES[12], ATTN_CASES[15]],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_is_bitwise_repeatable(cuda_device, case):
+    causal, window = case[6], case[7]
+    q, k, v, qpos, kpos = attn_inputs(case, cuda_device)
+    first = kflash.flash_attention(q, k, v, qpos, kpos, causal=causal,
+                                   window=window)
+    for _ in range(3):
+        assert torch.equal(kflash.flash_attention(
+            q, k, v, qpos, kpos, causal=causal, window=window), first)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_row_without_a_visible_key(cuda_device):
-    """The kernel skips every tile no row of its block can see, so rows
-    whose keys all lie in their future get zeros; the plain version
-    gives them the mean of v over all T
-    (``tests/test_torch_attention.py::test_rows_that_see_no_key``)."""
+    """The kernel skips every tile that no row of its block, or of a
+    warp's 16 rows, can see, so rows whose keys all lie in their future
+    get zeros, also beside rows of the block that see keys; the plain
+    version gives them the mean of v over all T
+    (``tests/test_torch_attention.py::test_rows_that_see_no_key``,
+    ``::test_flash_tile_model_skips_what_no_row_of_a_warp_sees``)."""
     q, k, v, qpos, kpos = attn_inputs(ATTN_CASES[0], cuda_device)
     kpos = kpos + 1000
     got = kflash.flash_attention(q, k, v, qpos, kpos)
     assert torch.equal(got, torch.zeros_like(got))
     assert_close(ref.attention(q, k, v, qpos, kpos)[0, 0, 0],
                  v[0, :, 0].mean(0))
+    # the first warp's rows (0..15) see nothing, the second's see keys
+    qpos = torch.cat([torch.arange(16), torch.arange(1000, 1048)]).to(
+        torch.int32).to(cuda_device)
+    got = kflash.flash_attention(q, k, v, qpos, kpos)
+    assert torch.equal(got[:, :16], torch.zeros_like(got[:, :16]))
+    assert_close(got[:, 16:], ref.attention(q, k, v, qpos, kpos)[:, 16:])
 
 
 @pytest.mark.cuda

@@ -8,6 +8,11 @@
 * the plain ``window_gather`` BITWISE against ``ref.window_gather`` and
   the Pallas kernel in interpret mode (non-pow2 capacities, ``ends <
   L``, ``valid`` of 0, partial and full);
+* the plain model of the CUDA ``window_gather``'s plan (chunks of a
+  row, a float4 a thread when ``L % 4 == 0``, one subtraction for the
+  wrap when ``L <= cap``: ``window_gather_runs``) BITWISE against
+  ``ref.window_gather``, with ``L % 4 != 0``, a wrap inside a vector of
+  4, ``L = cap``, ``L > cap`` and odd capacities;
 * the ``ops`` dispatch: CPU tensors run the plain versions.
 
 The CUDA kernels themselves are held against the plain versions in
@@ -28,7 +33,8 @@ from repro.kernels.window_gather import window_gather as pl_gather
 from repro_torch.kernels import conv1d_stripe as kconv
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import window_gather as kgather
-from repro_torch.testing import assert_bitwise, assert_close
+from repro_torch.testing import (assert_bitwise, assert_close, gather_plan,
+                                 window_gather_runs)
 
 torch.set_num_threads(1)
 
@@ -139,6 +145,48 @@ def test_window_gather_plain_bitwise_vs_jax(case):
                            interpret=True)
         assert_bitwise(got, np.asarray(pallas), "pallas interpret")
     assert float(got[torch.from_numpy(valid == 0)].abs().sum()) == 0.0
+
+
+# the CUDA window_gather's paths: (N, C, cap, L, patients, ends, valid)
+GATHER_RUN_CASES = GATHER_CASES + [
+    (3, 2, 50, 21, [2, 0, 1], [10, 49, 70], [21, 5, 0]),   # L % 4 = 1
+    (2, 2, 37, 16, [1, 0], [51, 14], [16, 16]),    # wraps at j = 2 of a float4
+    (1, 2, 3000, 2100, [0], [1502], [2100]),       # 3 chunks, wrap at j = 598
+    (2, 3, 40, 40, [0, 1, 1], [7, 40, 0], [40, 13, 40]),  # L = cap
+    (2, 2, 24, 40, [1, 0], [5, 30], [40, 25]),     # L > cap, float4s
+    (2, 1, 10, 33, [0, 1], [3, -7], [33, 20]),     # L > cap, odd L
+    (2, 3, 7501, 7500, [0, 1], [7000, 7501], [7500, 7499]),  # odd cap
+]
+
+
+@pytest.mark.parametrize("case", GATHER_RUN_CASES,
+                         ids=lambda c: f"cap{c[2]}-L{c[3]}")
+def test_window_gather_run_model_bitwise_vs_jax(case):
+    N, C, cap, L, pts, ends, valid = case
+    buf = _ring(np.random.default_rng(cap + L), N, C, cap)
+    pts, ends, valid = (np.asarray(a, np.int32) for a in (pts, ends, valid))
+    want = np.asarray(jref.window_gather(jnp.asarray(buf), pts, ends,
+                                         valid, L))
+    got = window_gather_runs(torch.from_numpy(buf), torch.from_numpy(pts),
+                             torch.from_numpy(ends), torch.from_numpy(valid),
+                             L)
+    assert_bitwise(got, want, str(case[:4]))
+    assert_bitwise(ops.window_gather(
+        torch.from_numpy(buf), torch.from_numpy(pts), torch.from_numpy(ends),
+        torch.from_numpy(valid), L), want, "plain")
+
+
+@pytest.mark.parametrize("P,C,L,cap,want", [
+    (64, 3, 7500, 16384, (True, 256, 8, 1536, False)),    # ECG flush
+    (64, 7, 30, 64, (False, 32, 1, 448, False)),          # vitals
+    (4, 2, 40, 24, (True, 32, 1, 8, True)),               # L > cap
+])
+def test_window_gather_plan_at_the_served_rings(P, C, L, cap, want):
+    plan = gather_plan(P, C, L, cap)
+    assert (plan["vec"], plan["threads"], plan["chunks"], plan["blocks"],
+            plan["wrap"]) == want
+    assert plan["chunks"] * plan["per_block"] >= L > \
+        (plan["chunks"] - 1) * plan["per_block"]
 
 
 def test_ops_cpu_runs_plain_and_counts_no_launch():
