@@ -20,6 +20,18 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    ``EnsembleServer`` over ``DeviceWindowRef``s, with the launch
    counters reset just before and read just after; then the flush
    latency at P=8 and P=64 and checks against the plain versions;
+3b. the slot engine over the same zoo and models: ``DeviceIngest``
+   timed per 1-s chunk on the card (64 beds), 10 counted rounds of
+   "close all 64 windows, tick" (exactly 1 + 1 ``window_gather`` and
+   the flush's 470 ``conv1d_stripe_stacked`` launches a tick, 20 bucket
+   passes a tick, none a read), the tick's wall time and device busy
+   time; the tick bitwise equal to the flush at 64 of 64 and 40 of 64
+   slots and at rung 128 (a flush padded to 128), within 1e-4 of a tick
+   over the plain versions and of the rung-64 flush; the slot server
+   (64 of 64 served, no thread left, its scores the engine's reads) and
+   the slot pipeline against the flush pipeline on one feed (rung 16
+   against rung 1: within 1e-4, whether bitwise recorded) and bitwise
+   against a flush of the same refs at rung 16;
 4. the dense-LM serving path through ``repro_torch.launch.serve``:
    qwen3-4b at full width and depth (36 layers; batch 4, prompt 2048,
    32 new tokens), counters reset just before and read just after (36
@@ -1670,7 +1682,265 @@ def phase_main(torch, np, specs, record, card, profile=False):
                       "flush_vs_plain_max_abs_err": flush_err,
                       "fused_vs_unfused_abs_err": abs(s_fused - s_unfused),
                       "main_path_seconds": main_s}
-    return launches, conv_per_flush
+    ctx = {"dev": dev, "rng": rng, "members": members, "vitals": vitals,
+           "labs": labs, "svc": svc, "lat": lat}
+    return launches, conv_per_flush, ctx
+
+
+def phase_slots(torch, np, ctx, record, card, conv_per_tick):
+    """The slot engine over phase 3's full zoo, its vitals and labs
+    models and its device: ingest on the card (64 beds, 1-s chunks),
+    10 counted rounds of "close all 64 windows, tick", then the checks
+    against the flush and the plain versions, the slot server and the
+    slot pipeline.  Every check raises on failure."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.ecg_zoo import (ECG_HZ, ECG_LEADS, N_LABS,
+                                             N_VITALS, VITALS_HZ)
+    from repro_torch.kernels import conv1d_stripe as kconv
+    from repro_torch.kernels import window_gather as kgather
+    from repro_torch.serving.aggregator import DeviceIngest, ModalitySpec
+    from repro_torch.serving.pipeline import (EnsembleService,
+                                              StreamingPipeline)
+    from repro_torch.serving.server import EnsembleServer
+    from repro_torch.serving.slots import SlotEngine
+
+    dev, rng, svc = ctx["dev"], ctx["rng"], ctx["svc"]
+    beds = 64
+    mods = [ModalitySpec("ecg", ECG_HZ, ECG_LEADS),
+            ModalitySpec("vitals", VITALS_HZ, N_VITALS)]
+    counters = (kgather.launches, kconv.launches_stacked, kconv.launches)
+    chunk_us = {"ecg": [], "vitals": []}
+
+    def feed(di, t0, seconds=30):
+        """``seconds`` 1-s chunks of ECG and vitals for every bed, each
+        ``ingest`` call timed on the host; then every bed's window is
+        closed (with a labs vector) and its ref returned."""
+        for s in range(seconds):
+            for bed in range(beds):
+                for m, c, k in (("ecg", ECG_LEADS, ECG_HZ),
+                                ("vitals", N_VITALS, VITALS_HZ)):
+                    x = rng.standard_normal((c, k)).astype(np.float32)
+                    t = time.perf_counter()
+                    di.ingest(t0 + s, bed, m, x)
+                    chunk_us[m].append(1e6 * (time.perf_counter() - t))
+        return [di.close_window(bed, t0 + seconds, extra={
+            "labs": rng.standard_normal(N_LABS).astype(np.float32)})
+            for bed in range(beds)]
+
+    def reads(eng, slots):
+        return np.array([eng.read(s) for s in slots])
+
+    di = DeviceIngest(mods, beds, 30.0, device=dev)
+    eng = SlotEngine(svc, di)
+    eng.warm()
+    refs = feed(di, 0.0)                   # untimed-by-tick first window
+    torch.cuda.synchronize()
+
+    # ---- the slot path: counters at zero just before, read just after
+    for c in counters:
+        c.reset()
+    ticks = []
+    for rnd in range(10):
+        if rnd:
+            refs = feed(di, 30.0 * rnd)
+        for r in refs:
+            eng.update(r)
+        t = time.perf_counter()
+        rep = eng.tick()
+        ticks.append(time.perf_counter() - t)
+        if rep.n_scored != beds or len(rep.stamped) != beds \
+                or rep.spad != 64:
+            raise AssertionError(f"tick {rnd}: {rep}")
+    launches = {c.name: c.value for c in counters}
+    per_tick = {k: v / 10 for k, v in launches.items()}
+    print(f"  slot path: 10 ticks of {beds} beds; launches {launches}",
+          flush=True)
+    if min(launches["window_gather"], launches["conv1d_stripe_stacked"]) \
+            <= 0:
+        raise AssertionError(f"a kernel of the slot path never launched: "
+                             f"{launches}")
+    want_tick = {"window_gather": 2, "conv1d_stripe_stacked": conv_per_tick,
+                 "conv1d_stripe": 0}
+    if per_tick != want_tick:
+        raise AssertionError(f"launches per tick {per_tick}, want "
+                             f"{want_tick} (1 ECG + 1 vitals gather, the "
+                             f"flush's convs)")
+    if eng.dispatch_count != 10 * svc.n_buckets:
+        raise AssertionError(f"10 ticks dispatched {eng.dispatch_count} "
+                             f"bucket passes, want 10 x {svc.n_buckets}")
+    for c in counters:
+        c.reset()
+    d0 = eng.dispatch_count
+    got64 = reads(eng, range(beds))
+    if any(c.value for c in counters) or eng.dispatch_count != d0:
+        raise AssertionError(f"64 reads launched {[c.value for c in counters]}"
+                             f" kernels, {eng.dispatch_count - d0} passes")
+
+    # device busy of one tick (traced), after the counted run
+    for r in refs:
+        eng.update(r)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.tick()
+        torch.cuda.synchronize()
+    by_kernel = _device_ms_by_kernel(torch, prof)
+    busy = sum(ms for ms, _ in by_kernel.values())
+
+    # ---- checks, each against the run above
+    failures = []
+    flush64 = np.array(svc.predict_batch(refs))
+    if not np.array_equal(got64, flush64):
+        failures.append(f"tick != flush at 64 of 64: max abs err "
+                        f"{np.abs(got64 - flush64).max():.3g}")
+    plain = EnsembleService(ctx["members"], vitals_model=ctx["vitals"],
+                            labs_model=ctx["labs"], impl="torch",
+                            device=dev)
+    peng = SlotEngine(plain, di)
+    for r in refs:
+        peng.update(r)
+    peng.tick()
+    plain_err = float(np.abs(reads(peng, range(beds)) - got64).max())
+    if not plain_err <= TOL:
+        failures.append(f"tick vs the plain versions' tick: {plain_err}")
+    keep = np.sort(rng.choice(beds, 40, replace=False))
+    for s in sorted(set(range(beds)) - set(keep.tolist())):
+        eng.discharge(s)
+    eng.tick()
+    got40 = reads(eng, keep)
+    flush40 = np.array(svc.predict_batch([refs[s] for s in keep]))
+    if not np.array_equal(got40, flush40):
+        failures.append(f"tick != flush at 40 of 64: max abs err "
+                        f"{np.abs(got40 - flush40).max():.3g}")
+    eng.ensure_slots(128)
+    for r in refs:
+        eng.update(r)                           # re-admits the other 24
+    rep128 = eng.tick()
+    got128 = reads(eng, range(beds))
+    filler = di.close_window(beds, 400.0)       # valid 0: an all-zero row
+    flush128 = np.array(svc.predict_batch(refs + [filler]))[:beds]
+    if rep128.spad != 128 or not np.array_equal(got128, flush128):
+        failures.append(f"tick at rung {rep128.spad} != flush at 128: max "
+                        f"abs err {np.abs(got128 - flush128).max():.3g}")
+    rung_err = float(np.abs(got128 - flush64).max())
+    rung_bitwise = bool(np.array_equal(got128, flush64))
+    if not rung_err <= TOL:
+        failures.append(f"rung 128 vs rung 64: {rung_err}")
+    every = np.concatenate([got64, got40, got128])
+    if not (np.all(np.isfinite(every)) and every.min() >= 0
+            and every.max() <= 1):
+        failures.append(f"scores outside [0, 1]: {every}")
+
+    # ---- served: the slot server and the slot pipeline
+    di2 = DeviceIngest(mods, beds, 30.0, device=dev)
+    eng2 = SlotEngine(svc, di2)
+    eng2.warm()
+    refs2 = feed(di2, 0.0)
+    srv = EnsembleServer(engine="slots", slot_engine=eng2, n_workers=2,
+                         tick_interval=0.05, slot_wait_timeout=60.0).start()
+    for bed, r in enumerate(refs2):
+        if not srv.submit(bed, r):
+            raise AssertionError(f"slot server shed bed {bed}")
+    stats = srv.stop()
+    served = {p: sc for p, sc, _, _ in srv.results()}
+    srv_want = reads(eng2, range(beds))
+    srv_got = np.array([served.get(p, np.nan) for p in range(beds)])
+    if stats.served != beds or stats.failed or srv.leaked \
+            or not np.array_equal(srv_got, srv_want):
+        failures.append(f"slot server: served {stats.served}, failed "
+                        f"{stats.failed}, leaked {srv.leaked}, scores equal "
+                        f"{np.array_equal(srv_got, srv_want)}")
+    pipes = {e: StreamingPipeline(svc, n_patients=16, device_ingest=True,
+                                  engine=e, device=dev)
+             for e in ("flush", "slots")}
+    closed = {}                       # (bed, t_window) -> the slot ref
+    slot_update = pipes["slots"].slot_engine.update
+
+    def keep_ref(ref):
+        closed[(ref.patient, pipes["slots"].device_ingest
+                .window_start[ref.patient])] = ref
+        return slot_update(ref)
+    pipes["slots"].slot_engine.update = keep_ref
+    for t0 in (0, 31):
+        for s in range(31):
+            for bed in range(16):
+                ecg = rng.standard_normal((3, ECG_HZ)).astype(np.float32)
+                vit = rng.standard_normal((N_VITALS, 1)).astype(np.float32)
+                for pipe in pipes.values():
+                    pipe.feed(float(t0 + s), bed, "ecg", ecg)
+                    pipe.feed(float(t0 + s), bed, "vitals", vit)
+    pipes["slots"].tick_now(62.0)
+    by_key = {e: {(r.patient, r.t_window): r.score for r in p.records}
+              for e, p in pipes.items()}
+    pipe_keys = sorted(by_key["flush"])
+    pipe_f = np.array([by_key["flush"][k] for k in pipe_keys])
+    pipe_s = np.array([by_key["slots"].get(k, np.nan) for k in pipe_keys])
+    # the flush pipeline scores each window alone (rung 1), the slot
+    # pipeline's ticks run at rung 16: held to the tolerance across
+    # rungs (whether the bits agree is recorded), and bitwise to a
+    # flush of the same refs at rung 16
+    pipe_err = float(np.abs(pipe_s - pipe_f).max())
+    pipe_bitwise = bool(np.array_equal(pipe_s, pipe_f))
+    rung16 = {}
+    for t_w in sorted({t for _, t in closed}):
+        ks = [k for k in sorted(closed) if k[1] == t_w]
+        rung16.update(zip(ks, svc.predict_batch([closed[k] for k in ks])))
+    pipe_16 = np.array([rung16.get(k, np.nan) for k in pipe_keys])
+    if len(pipe_keys) != 32 or sorted(by_key["slots"]) != pipe_keys \
+            or sorted(closed) != pipe_keys or not pipe_err <= TOL \
+            or not np.array_equal(pipe_s, pipe_16):
+        failures.append(f"slot pipeline: {len(by_key['slots'])} / "
+                        f"{len(pipe_keys)} records, max abs err "
+                        f"{pipe_err:.3g} against the flush pipeline, bitwise "
+                        f"a rung-16 flush {np.array_equal(pipe_s, pipe_16)}")
+
+    ing = {m: {"p50_us": float(np.percentile(v, 50)),
+               "p95_us": float(np.percentile(v, 95)), "chunks": len(v)}
+           for m, v in chunk_us.items()}
+    # device time of one chunk's writes: 64 chunks of a modality traced
+    for m, c, k in (("ecg", ECG_LEADS, ECG_HZ),
+                    ("vitals", N_VITALS, VITALS_HZ)):
+        xs = [rng.standard_normal((c, k)).astype(np.float32)
+              for _ in range(beds)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for bed in range(beds):
+                di2.ingest(40.0, bed, m, xs[bed])
+            torch.cuda.synchronize()
+        ing[m]["device_us"] = 1e3 * sum(
+            ms for ms, _ in _device_ms_by_kernel(torch, prof).values()) \
+            / beds
+    tick_ms = np.array(ticks) * 1e3
+    out = {"beds": beds, "launches": launches, "launches_per_tick": per_tick,
+           "dispatch_per_tick": svc.n_buckets,
+           "tick_p50_ms": float(np.percentile(tick_ms, 50)),
+           "tick_p95_ms": float(np.percentile(tick_ms, 95)),
+           "tick_ms": tick_ms.tolist(), "tick_device_busy_ms": busy,
+           "tick_by_kernel": {k: {"ms": ms, "count": n}
+                              for k, (ms, n) in by_kernel.items()},
+           "flush_p50_ms_P64": ctx["lat"][64]["p50_ms"],
+           "ingest": ing,
+           "tick_vs_plain_max_abs_err": plain_err,
+           "rung128_vs_rung64_max_abs_err": rung_err,
+           "rung128_bitwise_rung64": rung_bitwise,
+           "pipeline_vs_flush_max_abs_err": pipe_err,
+           "pipeline_bitwise": pipe_bitwise,
+           "server": {"served": stats.served, "failed": stats.failed},
+           "failures": failures}
+    record["slots"] = out
+    print(f"  slots on {card}: tick p50 {out['tick_p50_ms']:.2f} ms p95 "
+          f"{out['tick_p95_ms']:.2f} ms (P=64 flush p50 "
+          f"{out['flush_p50_ms_P64']:.2f} ms), device busy {busy:.2f} ms "
+          f"a tick; launches per tick {per_tick}; ingest host us per chunk "
+          f"ecg p50 {ing['ecg']['p50_us']:.1f} p95 {ing['ecg']['p95_us']:.1f}"
+          f" (device {ing['ecg']['device_us']:.2f}), vitals p50 "
+          f"{ing['vitals']['p50_us']:.1f} p95 {ing['vitals']['p95_us']:.1f} "
+          f"(device {ing['vitals']['device_us']:.2f}); tick vs plain {plain_err:.3g}; rung 128 vs "
+          f"64 {rung_err:.3g} (bitwise {rung_bitwise}); pipeline vs flush "
+          f"{pipe_err:.3g} (bitwise {pipe_bitwise})", flush=True)
+    if failures:
+        raise AssertionError("slot engine: " + "; ".join(failures))
+    return out
 
 
 def phase_small_reference(torch, np):
@@ -1778,13 +2048,17 @@ def main() -> int:
     gmm = phase_gmm(torch, record)
 
     print("phase 3: main path (full zoo)", flush=True)
-    launches, conv_per_flush = phase_main(torch, np, specs, record, card,
-                                          profile=profile)
+    launches, conv_per_flush, ctx = phase_main(torch, np, specs, record,
+                                               card, profile=profile)
     if conv_per_flush != conv[("conv1d_stripe_stacked", 64)]["calls"]:
         raise AssertionError(
             f"a flush launched {conv_per_flush} convs, the shape table "
             f"counts {conv[('conv1d_stripe_stacked', 64)]['calls']}")
     phase_small_reference(torch, np)
+
+    print("phase 3b: slot engine (full zoo)", flush=True)
+    slots = phase_slots(torch, np, ctx, record, card,
+                        conv[("conv1d_stripe_stacked", 64)]["calls"])
 
     print("phase 4: dense-LM serving path (qwen3-4b, full width and "
           "depth; smollm-360m)", flush=True)
@@ -1901,6 +2175,13 @@ def main() -> int:
                 "library_ms": t["library_ms"]}
 
     g = gather["ecg"]
+    conv_stacked = conv_row("conv1d_stripe_stacked",
+                            ("conv1d_stripe_stacked", 64),
+                            "src/repro/kernels/conv1d_stripe.py:99")
+    conv_stacked["launches_by_path"] = {
+        "flush main path (phase 3)": launches["conv1d_stripe_stacked"],
+        "slot ticks (phase 3b, 10 ticks)":
+            slots["launches"]["conv1d_stripe_stacked"]}
     conv_m1 = conv_row("conv1d_stripe", ("conv1d_stripe", 1),
                        "src/repro/kernels/conv1d_stripe.py:62")
     conv_m1["max_abs_err"] = max(conv_m1["max_abs_err"],
@@ -1926,12 +2207,15 @@ def main() -> int:
          "max_abs_err": max(v["max_abs_err"] for v in gather.values()),
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
+         "launches_by_path": {
+             "flush main path (phase 3)": launches["window_gather"],
+             "slot ticks (phase 3b, 10 ticks)":
+                 slots["launches"]["window_gather"]},
          "device_ms": g["device_ms"], "host_ms": g["host_ms"],
          "shape": "ECG ring: [64, 3, 16384], P=64, L=7500",
          "vitals": {k: gather["vitals"][k] for k in (
              "ms", "plain_ms", "bound_ms", "device_ms", "host_ms")}},
-        conv_row("conv1d_stripe_stacked", ("conv1d_stripe_stacked", 64),
-                 "src/repro/kernels/conv1d_stripe.py:99"),
+        conv_stacked,
         conv_m1,
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -33,8 +33,10 @@ pre-refactor member-expanded marshaling is kept as ``marshal="legacy"``.
 
 ``impl`` (``None``, ``"torch"`` or ``"cuda"``, see ``kernels.ops``)
 selects the kernels for every conv and gather of the service; ``None``
-picks by device.  Multi-device placement (``placement=``) and the slot
-engine are later slices of the port.
+picks by device.  Multi-device placement (``placement=``) is a later
+slice of the port.  The continuous slot engine (``serving.slots``)
+reuses this module's bucket passes (``StreamingPipeline(engine=
+"slots")``).
 """
 from __future__ import annotations
 
@@ -100,6 +102,14 @@ class EnsembleService:
     ``dispatch_count`` tallies zoo passes issued by ``predict``/
     ``predict_batch`` — the quantity the serving benchmark tracks per
     query.  Member params are moved to ``device`` (default ``cuda:0``).
+
+    ``dispatch_guard`` is the fault-injection seam
+    (``control.faults.FaultPlane.guard``): ``None`` by default; when
+    set, it is called with the bucket's device (``None`` for the
+    service's own device) just before each stacked pass of a flush or
+    a slot tick, once before the unfused loop, and raising
+    ``DeviceLostError`` there is how a device lost mid-flush reaches
+    the serving path.
     """
 
     def __init__(self, members: Sequence[ZooMember],
@@ -122,6 +132,7 @@ class EnsembleService:
         self.impl = impl
         self.marshal = marshal
         self.dispatch_count = 0
+        self.dispatch_guard: Optional[Callable] = None
         # ingest-side accounting: bytes shipped host->device for flush
         # inputs, and host seconds spent building/transferring them
         self.h2d_bytes = 0
@@ -258,8 +269,13 @@ class EnsembleService:
         (asynchronous on the card), then retire everything with ONE
         device->host copy of the concatenated scores."""
         t_dispatch = time.perf_counter()
-        ys = [_bucket_scores(b, _lead_expand(b, packs[b.spec.input_len]),
-                             self.impl) for b in self._buckets]
+        guard = self.dispatch_guard
+        ys = []
+        for b in self._buckets:
+            if guard is not None:
+                guard(None)
+            ys.append(_bucket_scores(
+                b, _lead_expand(b, packs[b.spec.input_len]), self.impl))
         with self._count_lock:
             self.dispatch_count += len(ys)
         t_gather = time.perf_counter()
@@ -364,7 +380,10 @@ class EnsembleService:
         ys = []
         h2d = 0
         t_marshal = time.perf_counter()
+        guard = self.dispatch_guard
         for b in self._buckets:
+            if guard is not None:
+                guard(None)
             L = b.spec.input_len
             xs = np.zeros((len(b.idx), Ppad, L, 1), np.float32)
             for j, lead in enumerate(b.leads):
@@ -388,6 +407,8 @@ class EnsembleService:
     def _predict_one_unfused(self, windows: Dict[str, np.ndarray]
                              ) -> float:
         ecg = windows.get("ecg")
+        if self.dispatch_guard is not None:
+            self.dispatch_guard(None)       # unfused runs on our device
         ys = []
         for m in self.members:
             L = m.spec.input_len
@@ -495,8 +516,16 @@ class StreamingPipeline:
 
     With ``tier_of`` (patient -> acuity tier) the service must be
     tier-routing (``TierRouter``): each closed window is answered by the
-    patient's CURRENT tier's service.  ``engine="slots"`` (the
-    continuous slot engine) comes with the slot-engine slice."""
+    patient's CURRENT tier's service.
+
+    ``engine="slots"`` (requires ``device_ingest=True``, untiered, a
+    plain fused ``EnsembleService`` on ``device``) switches from
+    flush-per-window to the continuous slot engine
+    (``serving.slots.SlotEngine``): a closed window UPDATES the bed's
+    slot, and every ``tick_seconds`` of logical stream time (default:
+    one window) one tick rescores all occupied slots — records are
+    emitted per (window, covering tick) with the slot's oracle-exact
+    score."""
 
     def __init__(self, service, n_patients: int,
                  window_seconds: float = float(CLIP_SECONDS),
@@ -505,17 +534,24 @@ class StreamingPipeline:
                  capacity_windows: float = 2.0,
                  trace_stages: bool = False,
                  engine: str = "flush",
+                 tick_seconds: Optional[float] = None,
                  device: DeviceLike = None):
-        if engine == "slots":
-            raise NotImplementedError(
-                'engine="slots" needs the slot engine (serving/slots.py), '
-                "which the slot-engine slice of the port adds")
-        if engine != "flush":
+        if engine not in ("flush", "slots"):
             raise ValueError(f"unknown engine {engine!r}")
+        if engine == "slots" and not device_ingest:
+            raise ValueError('engine="slots" requires device_ingest='
+                             "True (slots ARE the device rings)")
+        if engine == "slots" and tier_of is not None:
+            raise ValueError('engine="slots" is untiered')
         mods = [ModalitySpec("ecg", ECG_HZ, ECG_LEADS),
                 ModalitySpec("vitals", VITALS_HZ, 7)]
         self.device = resolve_device(device)
         self.engine = engine
+        self.tick_seconds = (tick_seconds if tick_seconds is not None
+                             else window_seconds)
+        self.slot_engine = None
+        self._last_tick_t: Optional[float] = None
+        self._pending_close: Dict[int, float] = {}
         self.service = service
         self.tier_of = tier_of
         self.device_ingest: Optional[DeviceIngest] = None
@@ -538,6 +574,9 @@ class StreamingPipeline:
         else:
             self.aggs = [PatientAggregator(mods, window_seconds)
                          for _ in range(n_patients)]
+        if engine == "slots":
+            from repro_torch.serving.slots import SlotEngine
+            self.slot_engine = SlotEngine(service, self.device_ingest)
         self.labs_cache: Dict[int, np.ndarray] = {}
         self.records: List[ServedQuery] = []
         self.trace_stages = trace_stages
@@ -564,13 +603,21 @@ class StreamingPipeline:
         if self.device_ingest is not None:
             self.device_ingest.ingest(t, patient, modality, samples)
             if not self.device_ingest.window_ready(patient, t):
-                return None
+                return self._maybe_tick(t, patient) \
+                    if self.engine == "slots" else None
         else:
             agg = self.aggs[patient]
             agg.ingest(t, modality, samples)
             if not agg.window_ready(t):
                 return None
         windows = self._close(t, patient)
+        if self.engine == "slots":
+            # the closed window updates the bed's slot; scoring happens
+            # at the next tick boundary of LOGICAL stream time, covering
+            # every slot that closed a window since the last tick
+            self.slot_engine.update(windows)
+            self._pending_close[patient] = t
+            return self._maybe_tick(t, patient)
         t0 = time.perf_counter()
         stages: Optional[Dict[str, float]] = None
         if self.trace_stages:
@@ -589,6 +636,43 @@ class StreamingPipeline:
         if self.tier_of is not None:
             return self.service.predict(windows, self.tier_of(patient))
         return self.service.predict(windows)
+
+    def _maybe_tick(self, t: float,
+                    patient: Optional[int] = None
+                    ) -> Optional[ServedQuery]:
+        """Fire a slot tick when a tick interval of logical time has
+        passed and windows are pending; emit one ``ServedQuery`` per
+        pending closed window the tick covered.  Returns ``patient``'s
+        record when this tick scored it."""
+        if self._last_tick_t is None:
+            self._last_tick_t = t
+        if t - self._last_tick_t < self.tick_seconds \
+                or not self._pending_close:
+            return None
+        return self.tick_now(t, patient)
+
+    def tick_now(self, t: float,
+                 patient: Optional[int] = None) -> Optional[ServedQuery]:
+        """Force a slot tick at logical time ``t`` (drain helper: score
+        whatever closed windows are still pending)."""
+        eng = self.slot_engine
+        if eng is None:
+            raise ValueError("tick_now needs engine='slots'")
+        t0 = time.perf_counter()
+        report = eng.tick()
+        wall = time.perf_counter() - t0
+        self._last_tick_t = t
+        out = None
+        for s in map(int, report.scored):
+            tw = self._pending_close.pop(s, None)
+            if tw is None:
+                continue        # rescored slot with no new window
+            rec = ServedQuery(patient=s, t_window=tw, t_done=t + wall,
+                              score=eng.read(s))
+            self.records.append(rec)
+            if s == patient:
+                out = rec
+        return out
 
     def latencies(self) -> np.ndarray:
         return np.asarray([r.latency for r in self.records])

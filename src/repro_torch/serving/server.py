@@ -26,9 +26,15 @@ served by exactly its tier's (selector, placement) service.  The
 telemetry tap always carries the patient id, so per-tier SLO slices
 (``control.telemetry.TieredTelemetry``) come for free.
 
-Continuous slot serving (``engine="slots"``) is not part of this
-package yet: the slot engine is ported in its own slice, and asking
-for it raises ``NotImplementedError``.
+Continuous slot serving: ``engine="slots"`` (with a
+``serving.slots.SlotEngine``) subsumes the micro-batcher on the hot
+path entirely — ``submit`` folds each closed window into the bed's
+persistent slot, a dedicated ticker thread scores ALL occupied slots
+every tick, and workers retire each query with a version-gated host
+int read (zero launches, zero transfers per query).  Queue bounds,
+shedding, stats, telemetry taps and span tracing are identical to the
+flush engine; staleness becomes a tick-age guard
+(``slot_wait_timeout``) instead of the flush deadline.
 
 Fault tolerance:
 
@@ -76,10 +82,12 @@ class Task:
     old ``(patient, windows, t_window)`` tuple so the span stamps the
     tracer needs ride the object itself instead of a side table.  All
     fields except the first three are stamped lazily on the trace
-    path; ``__slots__`` keeps the per-query footprint tuple-sized."""
+    path; ``__slots__`` keeps the per-query footprint tuple-sized.
+    ``version`` is the slot engine's close version under
+    ``engine="slots"`` (which tick must land before the read)."""
 
     __slots__ = ("patient", "windows", "t_window", "tier",
-                 "t_dequeue", "t_flush", "batch_n", "stages")
+                 "t_dequeue", "t_flush", "batch_n", "stages", "version")
 
     def __init__(self, patient: int, windows: Dict, t_window: float,
                  tier: object = None):
@@ -91,6 +99,7 @@ class Task:
         self.t_flush = t_window
         self.batch_n = 1
         self.stages: Optional[Dict[str, float]] = None
+        self.version = 0
 
 
 class ServerStats:
@@ -209,15 +218,50 @@ class EnsembleServer:
                  deadline_seconds: Optional[float] = None,
                  watchdog_interval: float = 0.02,
                  tracer: Optional["_spans.SpanRecorder"] = None,
-                 engine: str = "flush"):
+                 engine: str = "flush",
+                 slot_engine=None,
+                 tick_interval: float = 0.02,
+                 slot_wait_timeout: Optional[float] = None,
+                 ticker_deadline_seconds: Optional[float] = None):
         if engine not in ("flush", "slots"):
             raise ValueError(f"unknown engine {engine!r}")
         if engine == "slots":
-            raise NotImplementedError(
-                'engine="slots" needs the slot engine (serving/slots.py), '
-                "which the slot-engine slice of the port adds")
-        assert handler is not None or batch_handler is not None
+            # continuous slot serving: no per-query handler at all — a
+            # dedicated ticker scores every occupied slot each tick and
+            # workers just version-gate a host read per query, so the
+            # micro-batcher is subsumed entirely on the hot path
+            if slot_engine is None:
+                raise ValueError('engine="slots" needs a slot_engine '
+                                 "(serving.slots.SlotEngine)")
+            if handler is not None or batch_handler is not None:
+                raise ValueError('engine="slots" replaces the handlers; '
+                                 "pass neither")
+            if tier_of is not None or tier_priority is not None:
+                raise ValueError('engine="slots" is untiered (one slot '
+                                 "plane per census); drop tier_of")
+        else:
+            assert handler is not None or batch_handler is not None
+            if slot_engine is not None:
+                raise ValueError('slot_engine needs engine="slots"')
         self.engine = engine
+        self.slot_engine = slot_engine
+        self._slot_wait = (slot_wait_timeout
+                           if slot_wait_timeout is not None
+                           else max(1.0, 10.0 * tick_interval))
+        self.ticker = None
+        self.ticker_watchdog = None
+        if engine == "slots":
+            from repro_torch.serving.slots import SlotTicker, TickerWatchdog
+            self.ticker = SlotTicker(slot_engine, interval=tick_interval)
+            if ticker_deadline_seconds is not None:
+                # heartbeat watchdog: a dead or stalled ticker is
+                # respawned; readers ride the gap on the tick-age
+                # guard / wait timeout (NaN-or-stale, never wrong)
+                self.ticker_watchdog = TickerWatchdog(
+                    self.ticker, deadline_seconds=ticker_deadline_seconds)
+        elif ticker_deadline_seconds is not None:
+            raise ValueError('ticker_deadline_seconds needs '
+                             'engine="slots"')
         self.handler = handler
         self.batch_handler = batch_handler
         self.slo = slo_seconds
@@ -284,6 +328,10 @@ class EnsembleServer:
             w.start()
         if self._watchdog is not None:
             self._watchdog.start()
+        if self.ticker is not None:
+            self.ticker.start()
+        if self.ticker_watchdog is not None:
+            self.ticker_watchdog.start()
         return self
 
     def _tier_and_priority(self, patient: int):
@@ -308,6 +356,11 @@ class EnsembleServer:
         t_window = t_window if t_window is not None else time.monotonic()
         tier, prio = self._tier_and_priority(patient)
         task = Task(patient, windows, t_window, tier)
+        if self.engine == "slots":
+            # fold the closed window into the bed's slot BEFORE
+            # admission control: even if the read request is shed, the
+            # slot state must stay fresh (monitoring never regresses)
+            task.version = self.slot_engine.update(windows)
         try:
             if self.tier_priority is not None:
                 ok, victim = self.q.put_evicting(task, priority=prio,
@@ -508,11 +561,40 @@ class EnsembleServer:
                 return                  # watchdog replaced this worker
             self._retire(tasks, scores)
 
+    def _run_slots(self) -> None:
+        """Slot-engine worker: no handler, no batcher, no dispatch —
+        wait for the tick covering the task's close version, then one
+        host int read.  The wait is bounded by ``slot_wait_timeout``
+        (default 10 tick intervals, at least 1 s): a stopped ticker or
+        a slot gone stale retires the query NaN instead of blocking
+        forever — the tick-age guard in server form."""
+        eng = self.slot_engine
+        while not self._stop.is_set():
+            try:
+                task = self.q.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            task.t_dequeue = time.monotonic()
+            ok = eng.wait_scored(task.patient, task.version,
+                                 timeout=self._slot_wait)
+            task.t_flush = time.monotonic()
+            if ok:
+                try:
+                    score = eng.read(task.patient)
+                except KeyError:          # discharged after scoring
+                    score = float("nan")
+            else:
+                score = float("nan")
+            self._retire([task], [score],
+                         cause=None if ok else "stale")
+
     def _run(self, token: int = -1) -> None:
         # stamp this worker's epoch token before any watchdog-visible
         # work; everything downstream (_begin/_end_inflight, heartbeat)
         # reads it from the thread-local
         self._worker_token.token = token
+        if self.engine == "slots":
+            return self._run_slots()
         if self.batch_handler is not None:
             return self._run_batched()
         tracing = self.tracer is not None
@@ -578,6 +660,14 @@ class EnsembleServer:
         for t in threads:
             t.join(timeout=join_timeout)
         self.leaked = [t.name for t in threads if t.is_alive()]
+        if self.ticker_watchdog is not None:
+            # the watchdog stops FIRST so it cannot respawn a ticker
+            # generation behind the ticker join below
+            if not self.ticker_watchdog.stop(join_timeout):
+                self.leaked.append(self.ticker_watchdog.name)
+        if self.ticker is not None and not self.ticker.stop(join_timeout):
+            # every generation a respawn ever left behind is accounted
+            self.leaked.extend(self.ticker.alive_threads())
         if self.leaked:
             log.warning("server stop(): threads still alive: %s",
                         self.leaked)

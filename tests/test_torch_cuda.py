@@ -27,7 +27,10 @@ up to 7500) and tiled path (the ECG zoo's 1x1, stem and grouped shapes
 at B = 1), both also equal to the direct path; ``moe_gmm``'s stream
 (whole experts empty, some rows, all rows, C = 16, 24 and 64, an empty
 expert whose weights hold NaN) and its tensor-core path (C, d and f off
-its tiles).
+its tiles).  The slot engine over the reduced zoo on the card: its tick
+bitwise the flush at full and partial occupancy, within the tolerance
+of a tick over the plain versions, and an aborted tick leaving the
+state tensor's bytes.
 """
 import numpy as np
 import pytest
@@ -838,3 +841,117 @@ def test_cuda_mla_lm_matches_plain_and_decode_never_syncs(cuda_device,
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(y).all())
+
+
+# ---------------------------------------------------- the slot engine
+def _slot_census(device, impl=None, beds=64):
+    """The reduced zoo (12 members, 1-s windows) with a vitals forest
+    and a labs model behind a slot engine over ``beds`` beds, one
+    closed window each (ECG and vitals)."""
+    from repro_torch.configs.ecg_zoo import zoo_specs
+    from repro_torch.models.ecg_resnext import init_ecg
+    from repro_torch.models.tabular import LogisticRegression, VitalsForest
+    from repro_torch.serving import aggregator as ta
+    from repro_torch.serving import pipeline as tp
+    from repro_torch.serving.slots import SlotEngine
+
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 2, 40)
+    vit = VitalsForest(7, n_trees=4).fit(rng.standard_normal((40, 7, 1)), y)
+    labs = LogisticRegression(steps=50).fit(rng.standard_normal((40, 8)), y)
+    members = [tp.ZooMember(s, init_ecg(s, torch.Generator().manual_seed(i)))
+               for i, s in enumerate(zoo_specs(reduced=True, input_len=250))]
+    svc = tp.EnsembleService(members, vitals_model=vit, labs_model=labs,
+                             impl=impl, device=device)
+    di = ta.DeviceIngest([ta.ModalitySpec("ecg", 250.0, 3),
+                          ta.ModalitySpec("vitals", 1.0, 7)], beds, 1.0,
+                         device=device)
+    refs = []
+    for p in range(beds):
+        di.ingest(0.0, p, "ecg",
+                  rng.standard_normal((3, 250)).astype(np.float32))
+        di.ingest(0.0, p, "vitals",
+                  rng.standard_normal((7, 1)).astype(np.float32))
+        refs.append(di.close_window(p, 1.0, extra={
+            "labs": rng.standard_normal(8).astype(np.float32)}))
+    return svc, di, SlotEngine(svc, di), refs
+
+
+@pytest.mark.cuda
+def test_cuda_slot_tick_equals_flush_bitwise(cuda_device):
+    """With the CUDA kernels: the tick's reads are bitwise the flush of
+    the same refs at 64 of 64 slots and at 40 of 64 (other rows, the
+    same rung); the tick launches the gathers and the stacked convs,
+    the reads launch nothing."""
+    svc, di, eng, refs = _slot_census(cuda_device)
+    for r in refs:
+        eng.update(r)
+    before = (kgather.launches.value, kconv.launches_stacked.value)
+    rep = eng.tick()
+    assert rep.n_scored == 64 and rep.spad == 64
+    assert kgather.launches.value == before[0] + 2
+    assert kconv.launches_stacked.value > before[1]
+    before = (kgather.launches.value, kconv.launches_stacked.value)
+    got = np.array([eng.read(p) for p in range(64)])
+    assert (kgather.launches.value, kconv.launches_stacked.value) == before
+    assert_bitwise(got, np.array(svc.predict_batch(refs)), "64 of 64")
+    keep = sorted(np.random.default_rng(1).choice(64, 40, replace=False))
+    for p in sorted(set(range(64)) - set(keep)):
+        eng.discharge(p)
+    eng.tick()
+    assert_bitwise(np.array([eng.read(p) for p in keep]),
+                   np.array(svc.predict_batch([refs[p] for p in keep])),
+                   "40 of 64")
+
+
+@pytest.mark.cuda
+def test_cuda_slot_tick_matches_plain_versions(cuda_device):
+    svc, di, eng, refs = _slot_census(cuda_device)
+    plain_svc, _, _, _ = _slot_census(cuda_device, impl="torch", beds=1)
+    from repro_torch.serving.slots import SlotEngine
+    peng = SlotEngine(plain_svc, di)
+    for r in refs:
+        eng.update(r)
+        peng.update(r)
+    eng.tick()
+    peng.tick()
+    assert_close(np.array([eng.read(p) for p in range(64)]),
+                 np.array([peng.read(p) for p in range(64)]))
+
+
+@pytest.mark.cuda
+def test_cuda_slot_aborted_tick_leaves_the_state_bytes(cuda_device):
+    from repro_torch.control.faults import (DeviceLostError, FaultEvent,
+                                            FaultPlane)
+    svc, di, eng, refs = _slot_census(cuda_device, beds=8)
+    for r in refs:
+        eng.update(r)
+    eng.tick()
+    state = [g.state.cpu().numpy().tobytes() for g in eng.groups]
+    reads = np.array([eng.read(p) for p in range(8)])
+    now = [0.0]
+    plane = FaultPlane([FaultEvent(1.0, "device_loss", target=0,
+                                   duration=1.0)], clock=lambda: now[0])
+    plane.arm()
+    assert plane.devices[0] == cuda_device
+    calls = []
+
+    def guard(device):
+        calls.append(device)
+        if len(calls) == svc.n_buckets + 1:
+            now[0] = 1.5                   # lost before the last pass
+        plane.guard(device)
+
+    svc.dispatch_guard = guard
+    for r in refs:
+        eng.update(r)
+    with pytest.raises(DeviceLostError):
+        eng.tick()
+    assert [g.state.cpu().numpy().tobytes() for g in eng.groups] == state
+    assert_bitwise(np.array([eng.read(p) for p in range(8)]), reads,
+                   "stale, never wrong")
+    now[0] = 3.0                           # restored
+    rep = eng.tick()
+    assert len(rep.stamped) == 8
+    assert_bitwise(np.array([eng.read(p) for p in range(8)]), reads,
+                   "the same windows again")

@@ -285,10 +285,12 @@ def test_server_counts_match_jax_server():
 
 
 def test_engines_and_placement_not_ported_yet(zoo):
+    """Placement is not ported yet; the slot engine is, and these calls
+    now fail its argument checks (``test_torch_slots.py``)."""
     _, tm = zoo
-    with pytest.raises(NotImplementedError, match="slot"):
+    with pytest.raises(ValueError, match="slot_engine"):
         tserver.EnsembleServer(batch_handler=len, engine="slots")
-    with pytest.raises(NotImplementedError, match="slot"):
+    with pytest.raises(ValueError, match="device_ingest"):
         tp.StreamingPipeline(None, 1, engine="slots", device="cpu")
     with pytest.raises(NotImplementedError, match="placement"):
         tp.EnsembleService(tm, placement=object(), device="cpu")
