@@ -32,6 +32,19 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    the slot pipeline against the flush pipeline on one feed (rung 16
    against rung 1: within 1e-4, whether bitwise recorded) and bitwise
    against a flush of the same refs at rung 16;
+3c. placement over 4 lanes of ``cuda:0`` (``repro_torch.device.lanes``)
+   on the same zoo, ingest and refs: the LPT plan from the 20 bucket
+   costs measured at ``PLAN_BATCH``; the 4-lane flush at P=8 and P=64
+   and a 64-bed tick bitwise equal to the unsharded ones with the same
+   counted launches; p50s, dispatch spans and device busy of phase 3's
+   service, a fresh unsharded one, one over the members in plan order
+   and the 4-lane one (its flushes also with the retire clocks on the
+   host), timed in turns;
+   a ``HotSwapper`` behind an ``EnsembleServer`` over the 64 refs
+   through a permanent loss of lane 2 under ``FaultPlane.protect`` (64/64 served, 3 lanes left,
+   bitwise the unsharded oracle, seconds from the loss to the first
+   correct score), a ``re_place`` from the live costs, and the same
+   loss mid-tick under ``protect_engine``;
 4. the dense-LM serving path through ``repro_torch.launch.serve``:
    qwen3-4b at full width and depth (36 layers; batch 4, prompt 2048,
    32 new tokens), counters reset just before and read just after (36
@@ -73,7 +86,8 @@ repeatable, the convs are timed on their direct path too, and the small
 conv calls, every ``decode_attention`` shape and ``ssd`` get each call's
 device time (a CUDA graph) and host time beside the event-timed figure
 (``decode_attention`` and ``ssd`` with their plan and scratch bytes).
-``--only=gather,flash`` runs phase 2 for the named kernels alone and
+``--only=gather,flash`` runs phase 2 for the named kernels alone
+(``--only=flush``: phase 3 alone, its flush times and host stages) and
 prints no result line.  ``--profile`` adds one traced flush at P=8 and at P=64 after phase 3 and
 one traced prefill and decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe
 and deepseek-v2-lite (and one absorbed step) (``torch.profiler``):
@@ -1683,7 +1697,7 @@ def phase_main(torch, np, specs, record, card, profile=False):
                       "fused_vs_unfused_abs_err": abs(s_fused - s_unfused),
                       "main_path_seconds": main_s}
     ctx = {"dev": dev, "rng": rng, "members": members, "vitals": vitals,
-           "labs": labs, "svc": svc, "lat": lat}
+           "labs": labs, "svc": svc, "lat": lat, "refs": refs, "ingest": di}
     return launches, conv_per_flush, ctx
 
 
@@ -1943,6 +1957,305 @@ def phase_slots(torch, np, ctx, record, card, conv_per_tick):
     return out
 
 
+def phase_placement(torch, np, ctx, record, card):
+    """Placement over 4 lanes of ``cuda:0`` on phase 3's full zoo,
+    models, ingest and refs: the LPT plan from the 20 bucket costs
+    measured at ``PLAN_BATCH``; the 4-lane flush (refs path, P=8 and
+    P=64) and slot ticks (64 beds) against the unsharded service in the
+    same run (bitwise, the same launches, both p50s, device busy); then
+    a lane lost for good (lane 2) under ``FaultPlane.protect`` behind an
+    ``EnsembleServer`` over the 64 refs with a ``HotSwapper``
+    (64/64 served, bitwise the unsharded oracle after failover, 3 lanes
+    left, seconds from the loss to the first correct score), a
+    ``re_place`` from the live costs, and the same loss mid-tick under
+    ``protect_engine``.  Every check raises on failure."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.control.faults import FaultEvent, FaultPlane
+    from repro_torch.control.swap import HotSwapper
+    from repro_torch.device import lanes
+    from repro_torch.kernels import conv1d_stripe as kconv
+    from repro_torch.kernels import window_gather as kgather
+    from repro_torch.obs import spans as _spans
+    from repro_torch.serving import pipeline as _pl
+    from repro_torch.serving.pipeline import PLAN_BATCH, EnsembleService
+    from repro_torch.serving.server import EnsembleServer
+    from repro_torch.serving.slots import SlotEngine, SlotTicker, TickLadder
+
+    dev, svc, refs = ctx["dev"], ctx["svc"], ctx["refs"]
+    members, di = ctx["members"], ctx["ingest"]
+    side = {"vitals_model": ctx["vitals"], "labs_model": ctx["labs"]}
+    counters = (kgather.launches, kconv.launches_stacked, kconv.launches)
+    failures = []
+
+    # ---- the plan, from the bucket costs measured on the card
+    costs = svc.measured_bucket_costs(reps=3, batch=PLAN_BATCH)
+    pl = svc.plan_placement(4, bucket_costs=costs)
+    devs = lanes(4, dev)
+    if any(d.device != dev for d in devs):
+        raise AssertionError(f"a lane left the card: {devs}")
+    plan = {"bucket_costs_ms": [1e3 * c for c in costs],
+            "members_per_lane": [len(a) for a in pl.assignment],
+            "load_ms_per_lane": [1e3 * x for x in pl.loads],
+            "makespan_ms": 1e3 * pl.makespan, "imbalance": pl.imbalance}
+    print(f"  plan over 4 lanes of {dev} from {len(costs)} bucket costs at "
+          f"P={PLAN_BATCH} (ms): "
+          + " ".join(f"{c:.2f}" for c in plan["bucket_costs_ms"]),
+          flush=True)
+    print(f"  lanes: members {plan['members_per_lane']}, load (ms) "
+          + ", ".join(f"{x:.2f}" for x in plan["load_ms_per_lane"])
+          + f"; makespan {plan['makespan_ms']:.2f} ms, imbalance "
+          f"{pl.imbalance:.4f}", flush=True)
+    sharded = EnsembleService(members, placement=pl, devices=devs, **side)
+    t0 = time.perf_counter()
+    sharded.warmup(batch_sizes=(1, 8, 64))
+    warm_s = time.perf_counter() - t0
+    if sharded.device != dev or any(
+            b.tdev != dev or b.device not in devs
+            for b in sharded._buckets):
+        raise AssertionError("a shard is off its lane")
+
+    # ---- the same work unsharded, then over the 4 lanes: counters at
+    # zero just before each, read just after
+    flat_eng, eng = SlotEngine(svc, di), SlotEngine(sharded, di)
+    for r in refs:
+        flat_eng.update(r)
+        eng.update(r)
+    if len(eng.groups) != 4 or len(flat_eng.groups) != 1:
+        raise AssertionError(f"groups: {len(eng.groups)} over 4 lanes, "
+                             f"{len(flat_eng.groups)} unsharded")
+    runs = {}
+    for name, s_, e_ in (("unsharded", svc, flat_eng),
+                         ("4 lanes", sharded, eng)):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        d0 = s_.dispatch_count
+        out = {P: np.array(s_.predict_batch(refs[:P])) for P in (8, 64)}
+        rep = e_.tick()
+        out["tick"] = np.array([e_.read(b) for b in range(64)])
+        runs[name] = {"out": out, "passes": s_.dispatch_count - d0,
+                      "launches": {c.name: c.value for c in counters},
+                      "stamped": len(rep.stamped)}
+    a, b_ = runs["unsharded"], runs["4 lanes"]
+    bitwise = {k: bool(np.array_equal(a["out"][k], b_["out"][k]))
+               for k in (8, 64, "tick")}
+    for k, same in bitwise.items():
+        if not same:
+            failures.append(f"4 lanes != unsharded at {k}: max abs err "
+                            f"{np.abs(a['out'][k] - b_['out'][k]).max():.3g}")
+    if a["launches"] != b_["launches"] or a["passes"] != b_["passes"] \
+            or b_["stamped"] != 64 \
+            or min(b_["launches"]["window_gather"],
+                   b_["launches"]["conv1d_stripe_stacked"]) <= 0:
+        failures.append(f"launches: unsharded {a['launches']} ({a['passes']}"
+                        f" passes), 4 lanes {b_['launches']} "
+                        f"({b_['passes']} passes, {b_['stamped']} stamped)")
+    print(f"  4-lane flushes at P=8 and P=64 and one 64-bed tick: launches "
+          f"{b_['launches']} (unsharded {a['launches']}); bitwise equal "
+          f"{bitwise}", flush=True)
+
+    # ---- times: phase 3's service, two unsharded ones built and warmed
+    # as the 4-lane one was (one over the members in plan order: it
+    # issues the 20 bucket passes in the 4-lane order, and its Eq. 5
+    # sum runs in another order, so it is held within TOL), and the
+    # 4-lane one, in turns, in this run; with each flush's dispatch span
+    # (the 4-lane one's holds its shards' retire-clock events, the
+    # unsharded ones take none)
+    def warmed(mems):
+        s_ = EnsembleService(mems, device=dev, **side)
+        s_.warmup(batch_sizes=(1, 8, 64))
+        e_ = SlotEngine(s_, di)
+        for r in refs:
+            e_.update(r)
+        return s_, e_
+
+    # the 4-lane flush with its shards' retire clocks on the host (no
+    # CUDA event): what the events cost it
+    clocks = (_pl._clock_start, _pl._clock_stop)
+    host_clocks = (lambda d: time.perf_counter(),
+                   lambda d, t0: time.perf_counter() - t0)
+
+    order = [i for slot in pl.assignment for i in slot]
+    quad = (("unsharded", svc, flat_eng, True),
+            ("unsharded fresh", *warmed(members), True),
+            ("unsharded, plan order", *warmed([members[i] for i in order]),
+             False),
+            ("4 lanes", sharded, eng, True),
+            ("4 lanes, host clock", sharded, None, True))
+    lat = {n: {8: [], 64: [], "tick": []} for n, _, _, _ in quad}
+    span = {n: {8: [], 64: []} for n, _, _, _ in quad}
+
+    def same(name, exact, got, want, what):
+        ok = np.array_equal(got, want) if exact else \
+            np.allclose(got, want, rtol=TOL, atol=TOL)
+        if not ok:
+            failures.append(f"{name} {what} != unsharded: max abs err "
+                            f"{np.abs(np.asarray(got) - want).max():.3g}")
+
+    for i in range(8):
+        for name, s_, e_, exact in (quad if i % 2 == 0 else quad[::-1]):
+            for P in (8, 64):
+                _pl._clock_start, _pl._clock_stop = \
+                    host_clocks if e_ is None else clocks
+                with _spans.collect() as acc:
+                    t = time.perf_counter()
+                    got = np.array(s_.predict_batch(refs[:P]))
+                    lat[name][P].append(time.perf_counter() - t)
+                span[name][P].append(acc.get("dispatch", 0.0))
+                same(name, exact, got, a["out"][P],
+                     f"flush P={P} round {i}")
+            if e_ is None:
+                continue
+            t = time.perf_counter()
+            e_.tick()
+            lat[name]["tick"].append(time.perf_counter() - t)
+            same(name, exact, [e_.read(x) for x in range(64)],
+                 a["out"]["tick"], f"tick round {i}")
+    _pl._clock_start, _pl._clock_stop = clocks
+    p50 = {n: {k: 1e3 * float(np.percentile(v, 50)) if v else None
+               for k, v in d.items()} for n, d in lat.items()}
+    dispatch_p50 = {n: {P: 1e3 * float(np.percentile(v, 50))
+                        for P, v in d.items()} for n, d in span.items()}
+    busy = {}
+    for name, s_, _, _ in quad[:4]:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s_.predict_batch(refs)
+            torch.cuda.synchronize()
+        busy[name] = sum(ms for ms, _ in _device_ms_by_kernel(
+            torch, prof).values())
+    names = [n for n, _, _, _ in quad]
+    print(f"  flush p50 on {card} (ms), {' / '.join(names)}: P=8 "
+          + " / ".join(f"{p50[n][8]:.2f}" for n in names) + "; P=64 "
+          + " / ".join(f"{p50[n][64]:.2f}" for n in names)
+          + "; tick (64 beds) "
+          + " / ".join(f"{p50[n]['tick']:.2f}" for n in names[:4])
+          + "; dispatch span p50 P=8 "
+          + " / ".join(f"{dispatch_p50[n][8]:.2f}" for n in names)
+          + ", P=64 "
+          + " / ".join(f"{dispatch_p50[n][64]:.2f}" for n in names)
+          + "; device busy of one P=64 flush "
+          + " / ".join(f"{busy[n]:.2f}" for n in names[:4])
+          + f" ms; 4-lane warm-up {warm_s:.2f} s", flush=True)
+
+    # ---- a lane lost for good mid-run, behind the server
+    ones = np.ones(len(members), np.int8)
+    sw = HotSwapper(members, ones, n_devices=4, devices=devs,
+                    warmup_batch_sizes=(1, 8), placement_fn=lambda s: pl,
+                    device=dev, **side)
+    sw.placement_fn = None           # re-planning from live costs later
+    plane = FaultPlane([FaultEvent(0.15, "device_loss", target=2)])
+    plane.arm(sw, devices=devs)
+    done = []
+
+    def score(batch):
+        out = sw.facade.predict_batch(batch)
+        done.append((time.monotonic(), list(batch), out))
+        return out
+
+    srv = EnsembleServer(batch_handler=plane.protect(score, sw,
+                                                     retry_sleep=0.002),
+                         n_workers=2, max_batch=8).start()
+    for bed, r in enumerate(refs):
+        if not srv.submit(bed, r):
+            raise AssertionError(f"failover server shed bed {bed}")
+    stats = srv.stop()
+    served = srv.results()
+    scores = np.array([sc for _, sc, _, _ in served])
+    fired = [t for t, ev in plane.fired if ev.kind == "device_loss"]
+    t_loss = plane._armed_at + fired[0] if fired else float("nan")
+    after = [t for t, _, _ in done if t > t_loss]
+    failover_s = (min(after) - t_loss) if after else float("nan")
+    n_bad = sum(not np.array_equal(out, svc.predict_batch(batch))
+                for _, batch, out in done)
+    if stats.served != 64 or stats.failed or len(served) != 64 \
+            or srv.leaked or np.isnan(scores).any() or not fired:
+        failures.append(f"failover server: served {stats.served}/64, "
+                        f"failed {stats.failed}, NaN "
+                        f"{int(np.isnan(scores).sum())}, leaked {srv.leaked}, "
+                        f"loss fired {bool(fired)}")
+    if sw.quarantined != [devs[2]] or len(sw.devices) != 3 \
+            or sw.active_placement.n_slots != 3 \
+            or list(plane._failover_threads) != [2] or n_bad \
+            or devs[2] in {b.device for b in sw.facade.current._buckets}:
+        failures.append(f"failover: quarantined {sw.quarantined}, lanes "
+                        f"{len(sw.devices)}, threads "
+                        f"{list(plane._failover_threads)}, {n_bad} batches "
+                        f"not bitwise the unsharded oracle")
+    fo_plan = [len(x) for x in sw.active_placement.assignment]
+    live = sw.facade.current.live_bucket_costs()
+    replaced = sw.re_place()
+    rp = sw.active_placement
+    after_rp = np.array(sw.facade.predict_batch(refs[:8]))
+    if not np.array_equal(after_rp, a["out"][8]):
+        failures.append("after re_place the P=8 flush is not bitwise")
+    print(f"  failover: {stats.served}/64 served, {stats.failed} failed, "
+          f"{len(done)} batches bitwise the unsharded oracle {n_bad == 0}; "
+          f"lane 2 lost at {fired[0] if fired else float('nan'):.3f} s, first "
+          f"correct score {failover_s:.3f} s later; members per lane "
+          f"{fo_plan} on 3 lanes; re_place from live costs "
+          f"({'measured' if live else 'none'}): changed {replaced}, members "
+          f"per lane {[len(x) for x in rp.assignment]}, load (ms) "
+          + ", ".join(f"{1e3 * x:.2f}" for x in rp.loads)
+          + f", imbalance {rp.imbalance:.4f}", flush=True)
+
+    # ---- the same loss mid-tick, through protect_engine
+    sw2 = HotSwapper(members, ones, n_devices=4, devices=devs,
+                     warmup_batch_sizes=(64,), placement_fn=lambda s: pl,
+                     device=dev, **side)
+    eng2 = SlotEngine(sw2.facade.current, di)
+    ticker = SlotTicker(eng2, interval=0.05)          # driven by hand
+    ladder = TickLadder(ticker, intervals=(0.2, 0.05))
+    clock = {"t": 0.0}
+    plane2 = FaultPlane([FaultEvent(1.0, "device_loss", target=2)],
+                        clock=lambda: clock["t"])
+    plane2.arm(sw2, devices=devs)
+    plane2.protect_engine(eng2, sw2, ticker=ticker, tick_ladder=ladder)
+    for r in refs:
+        eng2.update(r)
+    eng2.tick()
+    clock["t"] = 2.0                                  # the loss fires
+    t = time.perf_counter()
+    rep2 = eng2.tick()
+    slot_failover_s = time.perf_counter() - t
+    got2 = np.array([eng2.read(x) for x in range(64)])
+    if eng2.n_tick_aborts or not eng2.n_rebinds \
+            or sw2.quarantined != [devs[2]] or len(eng2.groups) != 3 \
+            or len(rep2.stamped) != 64 or ladder.ladder_pos != 1 \
+            or not np.array_equal(got2, a["out"]["tick"]):
+        failures.append(f"slot failover: aborts {eng2.n_tick_aborts}, "
+                        f"rebinds {eng2.n_rebinds}, quarantined "
+                        f"{sw2.quarantined}, groups {len(eng2.groups)}, "
+                        f"stamped {len(rep2.stamped)}, bitwise "
+                        f"{np.array_equal(got2, a['out']['tick'])}")
+    print(f"  slot failover: the tick that met the loss recovered and "
+          f"re-ran in {slot_failover_s:.3f} s ({eng2.n_tick_faults} fault, "
+          f"{eng2.n_rebinds} rebind, {len(eng2.groups)} groups); bitwise "
+          f"the unsharded tick {np.array_equal(got2, a['out']['tick'])}",
+          flush=True)
+    out = {"plan": plan, "lanes": [str(d) for d in devs],
+           "launches": b_["launches"], "launches_unsharded": a["launches"],
+           "bitwise": {str(k): v for k, v in bitwise.items()},
+           "passes": b_["passes"], "p50_ms": p50,
+           "dispatch_span_p50_ms": dispatch_p50,
+           "device_busy_ms_P64": busy, "warmup_s": warm_s,
+           "failover": {"served": stats.served, "failed": stats.failed,
+                        "seconds_to_first_correct_score": failover_s,
+                        "loss_at_s": fired[0] if fired else None,
+                        "members_per_lane": fo_plan,
+                        "replace_changed": replaced,
+                        "replace_members_per_lane":
+                            [len(x) for x in rp.assignment],
+                        "replace_imbalance": rp.imbalance,
+                        "slot_recovery_tick_s": slot_failover_s},
+           "failures": failures}
+    record["placement"] = out
+    if failures:
+        raise AssertionError("placement: " + "; ".join(failures))
+    return out
+
+
 def phase_small_reference(torch, np):
     """The reduced zoo at 1-s windows on the card against the same
     service on the CPU (plain versions): the scores must agree."""
@@ -1965,12 +2278,14 @@ def phase_small_reference(torch, np):
           f"{err:.3g}", flush=True)
 
 
-def phase_only(torch, np, F, specs, record, names) -> int:
+def phase_only(torch, np, F, specs, record, card, names) -> int:
     """``--only=gather,flash,...``: phase 2 for the named kernels alone
-    (gather, conv, mamba_conv, flash, decode, ssd, gmm), its records in
-    ``chiprun_out/chip_smoke_only.json``; no served path and no result
-    line."""
-    phases = {"gather": lambda: phase_gather(torch, np, record),
+    (gather, conv, mamba_conv, flash, decode, ssd, gmm), or ``flush``:
+    phase 3 alone (the full zoo's main path and its P=8/P=64 flush
+    times and host stages), its records in
+    ``chiprun_out/chip_smoke_only.json``; no result line."""
+    phases = {"flush": lambda: phase_main(torch, np, specs, record, card),
+              "gather": lambda: phase_gather(torch, np, record),
               "conv": lambda: phase_conv(torch, np, F, specs, record),
               "mamba_conv": lambda: phase_mamba_conv(torch, np, F, record),
               "flash": lambda: phase_flash(torch, np, F, record),
@@ -2038,7 +2353,7 @@ def main() -> int:
     specs = zoo_specs(reduced=False)
     print("phase 2: kernels against their plain versions", flush=True)
     if only:
-        return phase_only(torch, np, F, specs, record, only)
+        return phase_only(torch, np, F, specs, record, card, only)
     gather = phase_gather(torch, np, record)
     conv = phase_conv(torch, np, F, specs, record)
     mconv = phase_mamba_conv(torch, np, F, record)
@@ -2059,6 +2374,9 @@ def main() -> int:
     print("phase 3b: slot engine (full zoo)", flush=True)
     slots = phase_slots(torch, np, ctx, record, card,
                         conv[("conv1d_stripe_stacked", 64)]["calls"])
+
+    print("phase 3c: placement (full zoo, 4 lanes on cuda:0)", flush=True)
+    placed = phase_placement(torch, np, ctx, record, card)
 
     print("phase 4: dense-LM serving path (qwen3-4b, full width and "
           "depth; smollm-360m)", flush=True)
@@ -2181,7 +2499,9 @@ def main() -> int:
     conv_stacked["launches_by_path"] = {
         "flush main path (phase 3)": launches["conv1d_stripe_stacked"],
         "slot ticks (phase 3b, 10 ticks)":
-            slots["launches"]["conv1d_stripe_stacked"]}
+            slots["launches"]["conv1d_stripe_stacked"],
+        "placement (phase 3c, 4 lanes: flushes P=8, P=64 and a tick)":
+            placed["launches"]["conv1d_stripe_stacked"]}
     conv_m1 = conv_row("conv1d_stripe", ("conv1d_stripe", 1),
                        "src/repro/kernels/conv1d_stripe.py:62")
     conv_m1["max_abs_err"] = max(conv_m1["max_abs_err"],
@@ -2210,7 +2530,9 @@ def main() -> int:
          "launches_by_path": {
              "flush main path (phase 3)": launches["window_gather"],
              "slot ticks (phase 3b, 10 ticks)":
-                 slots["launches"]["window_gather"]},
+                 slots["launches"]["window_gather"],
+             "placement (phase 3c, 4 lanes: flushes P=8, P=64 and a tick)":
+                 placed["launches"]["window_gather"]},
          "device_ms": g["device_ms"], "host_ms": g["host_ms"],
          "shape": "ECG ring: [64, 3, 16384], P=64, L=7500",
          "vitals": {k: gather["vitals"][k] for k in (

@@ -2,7 +2,8 @@
 the port of ``repro/control/faults.py`` without ``wire_controller``
 (which needs the controller and comes with the control-plane slice).
 Nothing here depends on a framework except ``FaultPlane.arm``, which
-defaults its device list to the process's CUDA cards.
+defaults its device list to ``device_lanes()`` (one ``Lane`` a CUDA
+card), the same default as ``EnsembleService`` and ``HotSwapper``.
 
 HOLMES's claim is always-on sub-second scoring; what makes that claim
 believable is how the stack behaves when something breaks at 3am.  This
@@ -18,10 +19,10 @@ Fault kinds and their recovery contracts:
   by hand on a service) raises ``DeviceLostError`` the moment a flush
   or a slot tick would dispatch onto the lost device.  ``protect()``
   catches it in the server worker: a PERMANENT loss (duration 0)
-  quarantines the device — the duck-typed swapper's
-  ``quarantine_device`` (``HotSwapper``, the control-plane slice)
-  re-derives the placement over the survivors and hot-swaps the active
-  selector onto it — then the flush
+  quarantines the device — the swapper's ``quarantine_device``
+  (``control.swap.HotSwapper``) re-derives the placement over the
+  surviving lanes and hot-swaps the active selector onto it — then the
+  flush
   retries on the recovered service; a TRANSIENT loss (duration > 0,
   the only recoverable shape on a single-device pool) retries until the
   plane restores the device.  Either way the co-batched queries are
@@ -68,7 +69,8 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
+
+from repro_torch.device import as_lanes, device_lanes
 
 log = logging.getLogger(__name__)
 
@@ -79,8 +81,8 @@ FAULT_KINDS = ("device_loss", "worker_stall", "backpressure",
 class DeviceLostError(RuntimeError):
     """Raised by the armed dispatch guard when a flush or a slot tick
     would dispatch onto a device the fault plane has marked lost.
-    ``device`` is the lost ``torch.device`` (None past the plane's
-    device list), ``index`` its place in that list."""
+    ``device`` is the lost lane (None past the plane's device list),
+    ``index`` its place in that list."""
 
     def __init__(self, device, index: int):
         super().__init__(f"device {index} ({device}) lost")
@@ -155,26 +157,45 @@ class FaultPlane:
         """Start the schedule clock and hook the serving stack: the
         swapper's ``service_hook`` arms every service it stages (past
         and future) with this plane's dispatch guard.  ``devices``
-        (device index -> ``torch.device``) defaults to every CUDA card
-        of the process, and arming raises when there is none: pass
-        ``devices=[torch.device("cpu")]`` to drill on the CPU."""
+        (device index -> the value a service's guard is called with: a
+        ``Lane`` of a placement) defaults to the swapper's own lanes
+        (a copy, fixed at arming: quarantine shrinks the swapper's list,
+        never the plane's indices), else to ``device_lanes()``, one
+        lane a CUDA card, and arming raises when there is none.  A
+        sharded service is armed only against lanes: every lane it runs
+        on must be in ``devices``, and every scheduled loss must name
+        one of them, or no fault could ever fire on it."""
         if devices is None:
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
-            if not devices:
-                raise RuntimeError(
-                    "FaultPlane.arm: no CUDA device to arm against; pass "
-                    "devices=[torch.device('cpu')] for a CPU drill")
-        self.devices = list(devices)
+            devices = getattr(swapper, "devices", None)
+        self.devices = list(devices) if devices is not None \
+            else device_lanes()
+        if swapper is not None:             # refused before any hook
+            self._arm_service(swapper.facade.current)
+            swapper.service_hook = self._arm_service
         self._armed_at = self.clock()
         self.swapper = swapper
-        if swapper is not None:
-            swapper.service_hook = self._arm_service
-            self._arm_service(swapper.facade.current)
         return self
 
     def _arm_service(self, svc) -> None:
+        if getattr(svc, "placement", None) is not None:
+            self._check_lanes(svc.devices)
         svc.dispatch_guard = self.guard
+
+    def _check_lanes(self, used: Sequence) -> None:
+        """Refuse to arm a sharded service the guard cannot match: its
+        lanes outside this plane's list, or a scheduled loss beyond
+        it (a bare ``torch.device`` list is refused by ``as_lanes``)."""
+        devs = as_lanes(self.devices)
+        stray = [d for d in used if d not in devs]
+        if stray:
+            raise ValueError(f"the service runs on {stray}, which the "
+                             f"fault plane's lanes {devs} do not hold")
+        far = sorted({e.target for e in self.schedule
+                      if e.kind == "device_loss"
+                      and not 0 <= e.target < len(devs)})
+        if far:
+            raise ValueError(f"device_loss targets {far} lie beyond the "
+                             f"plane's {len(devs)} lane(s)")
 
     def now(self) -> float:
         """Seconds since ``arm()`` on the plane's MONOTONIC clock —
@@ -214,9 +235,11 @@ class FaultPlane:
 
     def guard(self, device) -> None:
         """The ``EnsembleService.dispatch_guard``: called with the
-        bucket's device (None = the service's own device, index 0)
-        immediately before each stacked dispatch.  ``torch.device``
-        values are not singletons, so devices compare by equality."""
+        bucket's lane (None = an unsharded service's own device, index
+        0) immediately before each stacked dispatch.  Devices compare
+        by equality: a ``Lane`` equals only a lane of the same index on
+        the same ``torch.device`` (never a bare ``torch.device``), so
+        the loss of lane 2 of four on one card stops lane 2 alone."""
         self._tick()
         with self._lock:
             for idx, ev in self._lost.items():

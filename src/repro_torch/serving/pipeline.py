@@ -1,11 +1,12 @@
 """The served ensemble pipeline (Fig. 4): HTTP-ingest stand-in ->
 stateful aggregators -> ensemble query -> bagging combine.  The port of
-``repro/serving/pipeline.py`` (flush engine, one device).
+``repro/serving/pipeline.py``.
 
 ``EnsembleService`` runs the selected ECG zoo members on its device
-(default ``cuda:0``) plus the CPU-side vitals/labs models;
-``StreamingPipeline`` drives it from per-patient multi-modal streams and
-records end-to-end wall-clock latencies.
+(default ``cuda:0``), or over the lanes of a placement, plus the
+CPU-side vitals/labs models; ``StreamingPipeline`` drives it from
+per-patient multi-modal streams and records end-to-end wall-clock
+latencies.
 
 Fused serving (the hot path)
 ----------------------------
@@ -33,17 +34,30 @@ pre-refactor member-expanded marshaling is kept as ``marshal="legacy"``.
 
 ``impl`` (``None``, ``"torch"`` or ``"cuda"``, see ``kernels.ops``)
 selects the kernels for every conv and gather of the service; ``None``
-picks by device.  Multi-device placement (``placement=``) is a later
-slice of the port.  The continuous slot engine (``serving.slots``)
+picks by device.  The continuous slot engine (``serving.slots``)
 reuses this module's bucket passes (``StreamingPipeline(engine=
 "slots")``).
+
+Sharded serving (``placement=``)
+--------------------------------
+A ``serving.placement.Placement`` shards the stacked bucket params over
+a list of lanes (``repro_torch.device.Lane``; default ``device_lanes()``,
+one a card): each slot's members are bucketed on their own and every
+(bucket, lane) shard holds its stacked params on the lane's device.  A
+flush issues one stacked pass a shard, each behind
+``dispatch_guard(lane)``, and copies the scores back once a distinct
+``torch.device``.  Bucket-aligned plans (``plan_placement``'s) are
+bitwise equal to the unsharded service: the stacked groups never
+change, only where they run.  Lanes on one card share its stream, so
+a 4-lane flush there runs the same launches as the unsharded one.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +65,7 @@ import torch
 from repro_torch.configs.ecg_zoo import (CLIP_SECONDS, ECG_HZ, ECG_LEADS,
                                          EcgModelSpec, VITALS_HZ,
                                          bucket_zoo)
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import (DeviceLike, Lane, as_lanes, resolve_device)
 from repro_torch.launch.ensemble_parallel import stack_members
 from repro_torch.models.ecg_resnext import (ecg_apply, ecg_apply_stacked,
                                             map_params)
@@ -61,6 +75,7 @@ from repro_torch.serving.aggregator import (DeviceIngest, DeviceWindowRef,
                                             PatientAggregator,
                                             gather_windows, pow2_rung,
                                             to_device)
+from repro_torch.serving.placement import Placement, grouped_lpt_placement
 
 
 @dataclasses.dataclass
@@ -71,12 +86,22 @@ class ZooMember:
 
 @dataclasses.dataclass
 class _Bucket:
-    """One stacked-execution group: structurally identical members."""
+    """One stacked-execution group: structurally identical members.
+    With a placement this is a (bucket, lane) SHARD — the same bucket
+    may appear once per lane its members were assigned to."""
     spec: EcgModelSpec            # shape-defining representative
     idx: List[int]                # member indices into self.members
     leads: List[int]              # per stacked member, the lead it reads
     lead_index: torch.Tensor      # the same leads, on the device
     stacked: Dict                 # stack_members() tree, leading axis M
+    device: Optional[Lane] = None  # the shard's lane (None: unsharded)
+    slot: int = 0                 # placement slot index (0 if unsharded)
+
+    @property
+    def tdev(self) -> torch.device:
+        """Where its tensors live: the lane's device (the service's own
+        when unsharded), read off its tensors."""
+        return self.lead_index.device
 
 
 def _bucket_scores(b: _Bucket, xs: torch.Tensor,
@@ -93,6 +118,53 @@ def _lead_expand(b: _Bucket, win: torch.Tensor) -> torch.Tensor:
         .unsqueeze(-1).contiguous()
 
 
+# representative flush rung for placement-planning cost measurement:
+# flushes pad to the pow2 ladder, and per-bucket cost RATIOS at batch 1
+# differ from ratios at flush size (fixed per-pass host cost dominates
+# small stacked calls), so planning from batch-1 timings skews the plan
+PLAN_BATCH = 8
+
+# EWMA weight for per-shard retire-time tracking (O(1) state per
+# (bucket, lane) shard; higher = drift shows faster, noisier)
+RETIRE_ALPHA = 0.3
+
+
+@functools.lru_cache(maxsize=None)
+def _warmup_pack(L: int, p: int, channels: int = ECG_LEADS
+                 ) -> np.ndarray:
+    """Shared zero window packs for warm-up, staging and cost
+    measurement: every bucket (and every service being staged for a hot
+    swap) warms the same (length, flush-size) host buffer."""
+    return np.zeros((p, channels, L), np.float32)
+
+
+def _clock_start(dev: torch.device):
+    """Start a shard's retire clock: the host's perf counter on the CPU,
+    a CUDA event on the card (read after the flush's sync, so timing a
+    shard adds no sync of its own)."""
+    if dev.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(dev))
+        return ev
+    return time.perf_counter()
+
+
+def _clock_stop(dev: torch.device, start):
+    if dev.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(dev))
+        return start, ev
+    return time.perf_counter() - start
+
+
+def _clock_seconds(mark) -> float:
+    if isinstance(mark, tuple):
+        start, end = mark
+        end.synchronize()               # done already: after the sync
+        return start.elapsed_time(end) / 1e3
+    return mark
+
+
 class EnsembleService:
     """Stateless ensemble actors with a bucketed fused dispatch plan.
 
@@ -101,11 +173,22 @@ class EnsembleService:
     one-call-per-member-per-patient loop (the numerical oracle).
     ``dispatch_count`` tallies zoo passes issued by ``predict``/
     ``predict_batch`` — the quantity the serving benchmark tracks per
-    query.  Member params are moved to ``device`` (default ``cuda:0``).
+    query.  Member params are moved to ``device`` (default: the first
+    lane's device when ``devices`` is given, else ``cuda:0``).
+
+    ``placement`` (a ``serving.placement.Placement`` whose assignment
+    covers every member exactly once) shards the fused plan over
+    ``devices``, a list of distinct ``Lane``s (default
+    ``device_lanes()``): slot d's members are bucketed on their own and
+    held on lane d's device, one stacked pass per (bucket, lane) shard.
+    A plan that uses a slot beyond the lanes is refused.  Bucket-aligned
+    plans are bitwise equal to the unsharded path; member-level
+    assignments change the stacked member-axis sizes and match to the
+    float tolerance only.
 
     ``dispatch_guard`` is the fault-injection seam
     (``control.faults.FaultPlane.guard``): ``None`` by default; when
-    set, it is called with the bucket's device (``None`` for the
+    set, it is called with the bucket's lane (``None`` for an unsharded
     service's own device) just before each stacked pass of a flush or
     a slot tick, once before the unfused loop, and raising
     ``DeviceLostError`` there is how a device lost mid-flush reaches
@@ -115,14 +198,24 @@ class EnsembleService:
     def __init__(self, members: Sequence[ZooMember],
                  vitals_model=None, labs_model=None,
                  fused: bool = True, impl: Optional[str] = None,
-                 placement=None, marshal: str = "packed",
-                 device: DeviceLike = None):
-        if placement is not None:
-            raise NotImplementedError(
-                "placement= (sharded multi-device serving) comes with the "
-                "placement slice of the port (serving/placement.py)")
+                 placement: Optional[Placement] = None,
+                 marshal: str = "packed",
+                 device: DeviceLike = None,
+                 devices: Optional[Sequence[Lane]] = None):
         if marshal not in ("packed", "legacy"):
             raise ValueError(f"unknown marshal mode {marshal!r}")
+        if placement is not None:
+            if not fused:
+                raise ValueError("placement requires the fused path")
+            placed = sorted(i for slot in placement.assignment
+                            for i in slot)
+            if placed != list(range(len(members))):
+                raise ValueError(
+                    f"placement must cover every member exactly once: "
+                    f"got {placed} for {len(members)} members")
+        self._devices = as_lanes(devices) if devices is not None else None
+        if device is None and self._devices:
+            device = self._devices[0].device
         self.device = resolve_device(device)
         self.members = [ZooMember(m.spec, map_params(
             m.params, lambda t: t.to(self.device))) for m in members]
@@ -131,16 +224,37 @@ class EnsembleService:
         self.fused = fused
         self.impl = impl
         self.marshal = marshal
+        self.placement = placement
         self.dispatch_count = 0
         self.dispatch_guard: Optional[Callable] = None
         # ingest-side accounting: bytes shipped host->device for flush
         # inputs, and host seconds spent building/transferring them
         self.h2d_bytes = 0
         self.marshal_seconds = 0.0
+        # live per-shard retire times: (bucket member tuple) -> EWMA of
+        # the shard's seconds on the fused flush path (the drift signal
+        # HotSwapper.re_place consumes); O(1) state per shard
+        self.retire_alpha = RETIRE_ALPHA
+        self._shard_ewma: Dict[Tuple[int, ...], float] = {}
         self._count_lock = threading.Lock()    # server workers share us
         self._bucket_cache: Optional[List[_Bucket]] = None
 
+    @classmethod
+    def for_selector(cls, pool: Sequence[ZooMember],
+                     selector: np.ndarray, **kwargs) -> "EnsembleService":
+        """Service over the subset of ``pool`` a binary selector picks —
+        the control plane's staging constructor (swap.HotSwapper)."""
+        idx = np.flatnonzero(np.asarray(selector, bool))
+        return cls([pool[i] for i in idx], **kwargs)
+
     # ------------------------------------------------------------ plan
+    @property
+    def devices(self) -> List[Lane]:
+        """The lanes a placement's slots map onto (``device_lanes()``
+        unless the service was given its own)."""
+        return self._devices if self._devices is not None \
+            else as_lanes(None)
+
     @property
     def _buckets(self) -> List[_Bucket]:
         """Stacked dispatch plan, built lazily on the first fused flush
@@ -153,42 +267,106 @@ class EnsembleService:
 
     def _build_buckets(self) -> List[_Bucket]:
         specs = [m.spec for m in self.members]
+        if self.placement is None:
+            groups = [(0, None, list(range(len(specs))))]
+        else:
+            devs = self.devices
+            used = [d for d, slot
+                    in enumerate(self.placement.assignment) if slot]
+            if used and used[-1] >= len(devs):
+                # refuse to fold slots onto fewer lanes: the plan's
+                # makespan/imbalance would describe parallelism that
+                # does not exist
+                raise ValueError(
+                    f"placement uses slot {used[-1]} but only "
+                    f"{len(devs)} lane(s) are available")
+            groups = [(d, devs[d], list(slot))
+                      for d, slot in enumerate(self.placement.assignment)
+                      if slot]
         out = []
-        for idx in bucket_zoo(specs).values():
-            leads = [specs[i].lead for i in idx]
-            out.append(_Bucket(
-                spec=specs[idx[0]], idx=idx, leads=leads,
-                lead_index=torch.tensor(leads, device=self.device),
-                stacked=stack_members([self.members[i].params
-                                       for i in idx])))
+        for slot_idx, lane, mem_idx in groups:
+            tdev = self.device if lane is None else lane.device
+            for local in bucket_zoo([specs[i] for i in mem_idx]).values():
+                idx = [mem_idx[j] for j in local]
+                leads = [specs[i].lead for i in idx]
+                stacked = stack_members([self.members[i].params
+                                         for i in idx])
+                if tdev != self.device:
+                    stacked = map_params(stacked, lambda t: t.to(tdev))
+                out.append(_Bucket(
+                    spec=specs[idx[0]], idx=idx, leads=leads,
+                    lead_index=torch.tensor(leads, device=tdev),
+                    stacked=stacked, device=lane, slot=slot_idx))
         return out
 
     @property
     def n_buckets(self) -> int:
-        """Stacked dispatches per flush."""
+        """Stacked dispatches per flush: architecture buckets, or
+        (bucket, lane) shards when a placement is active."""
         return len(self._buckets)
 
+    def plan_placement(self, n_devices: int,
+                       bucket_costs: Optional[Sequence[float]] = None,
+                       reps: int = 3,
+                       batch: Optional[int] = None,
+                       speeds: Optional[Sequence[float]] = None
+                       ) -> Placement:
+        """LPT plan over measured (or given) per-bucket costs, at BUCKET
+        granularity: a stacked bucket is atomic, so the plan never splits
+        one stacked pass across lanes.  The returned assignment is in
+        member indices, ready for ``EnsembleService(placement=...)``.
+        Costs are measured at a representative flush rung (``batch``,
+        default ``PLAN_BATCH``); ``speeds`` (one per slot) makes the plan
+        heterogeneity-aware (``placement.lpt_placement``)."""
+        groups = list(bucket_zoo([m.spec for m in self.members]).values())
+        if bucket_costs is None:
+            if self.placement is not None:
+                raise ValueError("measure bucket costs on an unsharded "
+                                 "service (or pass bucket_costs)")
+            bucket_costs = self.measured_bucket_costs(
+                reps=reps, batch=PLAN_BATCH if batch is None else batch)
+        return grouped_lpt_placement(groups, list(bucket_costs),
+                                     n_devices, speeds=speeds)
+
     # ---------------------------------------------------------- warmup
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, devs: Optional[Sequence[torch.device]] = None) -> None:
+        """Wait for the card(s): the service's device and every device
+        a bucket lives on (or just ``devs``)."""
+        if devs is None:
+            devs = {self.device} | {b.tdev for b in
+                                    (self._bucket_cache or ())}
+        for d in set(devs):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _bucket_input(self, b: _Bucket, p: int) -> torch.Tensor:
+        """A zero input of ``b`` at flush size ``p`` on its device: the
+        shared window pack (packed) or the member-expanded input."""
+        L = b.spec.input_len
+        if self.marshal == "legacy":
+            return torch.zeros((len(b.idx), p, L, 1), device=b.tdev)
+        return to_device(_warmup_pack(L, p), b.tdev)
+
+    def _bucket_pass(self, b: _Bucket, x: torch.Tensor) -> torch.Tensor:
+        xs = x if self.marshal == "legacy" else _lead_expand(b, x)
+        return _bucket_scores(b, xs, self.impl)
 
     def warmup(self, batch_sizes: Sequence[int] = (1, 2, 4, 8)) -> None:
         """Run every bucket once at each pow2 flush rung (the sizes
         ``predict_batch`` pads to), so the first full-census flush pays
         no one-time cost (the kernel library build, allocator growth)
-        on the latency path."""
+        on the latency path.  Packed mode shares one zero window pack
+        per (input length, device, flush size) across all buckets."""
         if self.fused:
+            shared: Dict = {}
             for b in self._buckets:
                 for p in batch_sizes:
-                    L = b.spec.input_len
-                    if self.marshal == "legacy":
-                        xs = torch.zeros((len(b.idx), p, L, 1),
-                                         device=self.device)
-                    else:
-                        xs = _lead_expand(b, torch.zeros(
-                            (p, ECG_LEADS, L), device=self.device))
-                    _bucket_scores(b, xs, self.impl)
+                    key = (b.spec.input_len, b.tdev, p)
+                    x = shared.get(key)
+                    if x is None or self.marshal == "legacy":
+                        x = self._bucket_input(b, p)
+                        shared[key] = x
+                    self._bucket_pass(b, x)
         else:
             for m in self.members:
                 self._member_score(m, torch.zeros(
@@ -210,11 +388,30 @@ class EnsembleService:
             x = torch.zeros((1, m.spec.input_len, 1), device=self.device)
             for _ in range(max(1, warmup)):
                 self._member_score(m, x)
-            self._sync()
+            self._sync([self.device])
             t0 = time.perf_counter()
             for _ in range(reps):
                 self._member_score(m, x)
-            self._sync()
+            self._sync([self.device])
+            out.append((time.perf_counter() - t0) / reps)
+        return out
+
+    def measured_bucket_costs(self, reps: int = 3, batch: int = 1,
+                              warmup: int = 1) -> List[float]:
+        """Closed-loop seconds per stacked bucket pass — the cost vector
+        the LPT placement planner consumes.  Each bucket is warmed with
+        ``warmup`` untimed calls first, so a one-time cost never folds
+        into the estimate."""
+        out = []
+        for b in self._buckets:
+            x = self._bucket_input(b, batch)
+            for _ in range(max(1, warmup)):
+                self._bucket_pass(b, x)
+            self._sync([b.tdev])
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                self._bucket_pass(b, x)
+            self._sync([b.tdev])
             out.append((time.perf_counter() - t0) / reps)
         return out
 
@@ -228,11 +425,12 @@ class EnsembleService:
         """Micro-batched form of ``predict``: one flush for windows
         from len(batch) patients — host window dicts or
         ``DeviceWindowRef``s (never mixed).  Packed path: ONE
-        [Ppad, 3, L] window pack per distinct input length, shipped once,
-        lead-expanded on the device inside each bucket's pass; the
-        scores come back with a single device->host copy at the end.
-        ECG windows shorter than a member's input_len are left-zero-
-        padded (the aggregator's zero-fill convention)."""
+        [Ppad, 3, L] window pack per distinct input length, shipped at
+        most once per device, lead-expanded on the device inside each
+        bucket's pass; the scores come back with one device->host copy
+        per device at the end.  ECG windows shorter than a member's
+        input_len are left-zero-padded (the aggregator's zero-fill
+        convention)."""
         if not len(batch):
             return []
         if isinstance(batch[0], DeviceWindowRef):
@@ -247,63 +445,172 @@ class EnsembleService:
         # forward passes are batch-independent, so zero rows are inert
         Ppad = pow2_rung(P)
         t_marshal = time.perf_counter()
-        packs: Dict[int, torch.Tensor] = {}
-        h2d = 0
+        packs: Dict[int, np.ndarray] = {}
         for L in sorted({b.spec.input_len for b in self._buckets}):
             win = np.zeros((Ppad, ECG_LEADS, L), np.float32)
             for p, w in enumerate(batch):
                 clip = np.asarray(w["ecg"], np.float32)[:, -L:]
                 win[p, :, L - clip.shape[-1]:] = clip
-            packs[L] = to_device(win, self.device)
-            h2d += win.nbytes
+            packs[L] = win
+        dev_wins, h2d = self._ship_packs(packs)
         marshal_s = time.perf_counter() - t_marshal
         _spans.note("marshal", marshal_s)
-        scores = self._flush(packs, P)
+        scores = self._flush(dev_wins, P)
         with self._count_lock:
             self.h2d_bytes += h2d
             self.marshal_seconds += marshal_s
         return self._combine(scores, batch)
 
-    def _flush(self, packs: Dict[int, torch.Tensor], P: int) -> np.ndarray:
-        """Issue one stacked pass per bucket against the shipped packs
-        (asynchronous on the card), then retire everything with ONE
-        device->host copy of the concatenated scores."""
+    def _ship_packs(self, packs: Dict[int, object]
+                    ) -> Tuple[Dict, int]:
+        """Bring each window pack to every ``torch.device`` a bucket
+        lives on, once: a host pack is copied over (its bytes counted
+        once a device), a pack already on a device is not copied again
+        (lanes on one card share one copy).  Returns
+        ({(L, torch.device): tensor}, host->device bytes)."""
+        dev_wins: Dict = {}
+        h2d = 0
+        for b in self._buckets:
+            key = (b.spec.input_len, b.tdev)
+            if key in dev_wins:
+                continue
+            win = packs[b.spec.input_len]
+            if isinstance(win, np.ndarray):
+                dev_wins[key] = to_device(win, b.tdev)
+                h2d += win.nbytes
+            else:
+                dev_wins[key] = win.to(b.tdev)
+        return dev_wins, h2d
+
+    def _flush(self, dev_wins: Dict, P: int) -> np.ndarray:
+        """Issue one stacked pass per bucket shard against the shipped
+        packs (asynchronous on the card), then retire everything with
+        one device->host copy of the scores per device.
+
+        A sharded service times each shard for its retire EWMA (their
+        readers, re-place and the controller's profile, plan sharded
+        deployments only; an unsharded flush takes no clock).  The
+        clock starts BEFORE the guard, as the reference's does: an
+        injected per-lane stall is device time and must drift that
+        shard's EWMA.  The reference times a shard from dispatch to its
+        retire in the gather loop (host wall clock); here a shard's
+        time runs from just before its guard to the end of its pass —
+        the host clock on the CPU, where a pass has finished when its
+        call returns, and a pair of CUDA events on the card, read after
+        the flush's sync."""
         t_dispatch = time.perf_counter()
         guard = self.dispatch_guard
-        ys = []
-        for b in self._buckets:
+        buckets = self._buckets
+        timed = self.placement is not None
+        ys, marks = [], []
+        for b in buckets:
+            start = _clock_start(b.tdev) if timed else None
             if guard is not None:
-                guard(None)
-            ys.append(_bucket_scores(
-                b, _lead_expand(b, packs[b.spec.input_len]), self.impl))
+                guard(b.device)
+            ys.append(self._bucket_pass(
+                b, dev_wins[(b.spec.input_len, b.tdev)]))
+            if timed:
+                marks.append(_clock_stop(b.tdev, start))
         with self._count_lock:
             self.dispatch_count += len(ys)
         t_gather = time.perf_counter()
         _spans.note("dispatch", t_gather - t_dispatch)
-        return self._retire(ys, P, t_gather)
+        score_mat = self._retire(buckets, ys, P, t_gather)
+        for b, mark in zip(buckets, marks):
+            self._record_retire(b, _clock_seconds(mark))
+        return score_mat
 
-    def _retire(self, ys: List[torch.Tensor], P: int,
-                t_gather: float) -> np.ndarray:
+    def _retire(self, buckets: Sequence[_Bucket], ys: List[torch.Tensor],
+                P: int, t_gather: float) -> np.ndarray:
+        """Scores of every shard into the ``[M, P]`` host matrix: ONE
+        device->host copy per distinct device (the sync)."""
         score_mat = np.zeros((len(self.members), P))
-        if ys:                                 # no zoo: CPU models only
-            host = torch.cat(ys)[:, :P].cpu().numpy()   # the one sync
+        by_dev: Dict[torch.device, List] = {}
+        for b, y in zip(buckets, ys):
+            by_dev.setdefault(b.tdev, []).append((b, y))
+        for pairs in by_dev.values():
+            host = torch.cat([y for _, y in pairs])[:, :P].cpu().numpy()
             row = 0
-            for b in self._buckets:
+            for b, _ in pairs:
                 score_mat[b.idx] = host[row:row + len(b.idx)]
                 row += len(b.idx)
         _spans.note("gather", time.perf_counter() - t_gather)
         return score_mat
+
+    # ------------------------------------------- live shard cost drift
+    def _record_retire(self, b: _Bucket, dt: float) -> None:
+        """Fold one shard's seconds into its EWMA.  A persistently slow
+        lane inflates its own shards' EWMAs on every flush, so the
+        drift signal converges over repeated flushes."""
+        key = tuple(sorted(b.idx))
+        with self._count_lock:
+            prev = self._shard_ewma.get(key)
+            self._shard_ewma[key] = dt if prev is None else (
+                self.retire_alpha * dt
+                + (1.0 - self.retire_alpha) * prev)
+
+    def shard_cost_snapshot(self) -> Dict[Tuple[int, ...], float]:
+        """Live per-shard retire EWMAs, keyed by the shard's sorted
+        member-index tuple (stable across re-placements for
+        bucket-aligned plans).  Empty until the first fused flush, and
+        always for an unsharded service (it takes no clock)."""
+        with self._count_lock:
+            return dict(self._shard_ewma)
+
+    def live_bucket_costs(self) -> Optional[List[float]]:
+        """Measured per-architecture-bucket costs in DEVICE-INDEPENDENT
+        work units (retire EWMA x the speed of the slot the bucket
+        currently runs on), ordered like ``plan_placement``'s groups — a
+        drop-in ``bucket_costs`` vector for re-planning from drift.
+        None until every bucket has been observed (never, unsharded), or
+        when the active plan is not bucket-aligned."""
+        snap = self.shard_cost_snapshot()
+        if not snap:
+            return None
+        groups = list(bucket_zoo([m.spec for m in self.members]).values())
+        speed_of = {}
+        if self._bucket_cache is not None:
+            sp = self.placement.speeds
+            for b in self._bucket_cache:
+                speed_of[tuple(sorted(b.idx))] = (
+                    sp[b.slot] if sp is not None else 1.0)
+        out = []
+        for g in groups:
+            key = tuple(sorted(g))
+            dt = snap.get(key)
+            if dt is None:
+                return None
+            out.append(dt * speed_of.get(key, 1.0))
+        return out
+
+    def measured_finish_times(self) -> Optional[List[float]]:
+        """Live per-slot finish times (seconds): the max retire EWMA
+        over the shards of each slot.  None until every shard has been
+        observed (never, unsharded).  Idle slots report 0.0, so the
+        finish-time imbalance over this vector catches stranded lanes."""
+        if self._bucket_cache is None or self.placement is None:
+            return None
+        snap = self.shard_cost_snapshot()
+        fin = [0.0] * self.placement.n_slots
+        for b in self._bucket_cache:
+            dt = snap.get(tuple(sorted(b.idx)))
+            if dt is None:
+                return None
+            fin[b.slot] = max(fin[b.slot], dt)
+        return fin
 
     def _predict_refs(self, batch: Sequence[DeviceWindowRef]
                       ) -> List[float]:
         """Device-resident flush: the batch's windows already live in a
         ``DeviceIngest`` ring, so the pack is GATHERED on the device
         (``gather_windows`` fuses ring unwrap + zero-fill + batch
-        padding) and only the flushed (patient, end, valid) int32
-        triples cross the host boundary — zero sample bytes of H2D.
-        Bitwise-identical to the host-dict path fed the same windows.
-        The staleness guard and the gather launches run under the
-        ingest lock, so no chunk lands between them."""
+        padding) and only the flushed (patient, end, valid) triples
+        cross the host boundary — zero sample bytes of H2D.  A sharded
+        plan copies the gathered pack to each other device a lane lives
+        on, once (none on one card).  Bitwise-identical to the
+        host-dict path fed the same windows.  The staleness guard and
+        the gather launches run under the ingest lock, so no chunk
+        lands between them."""
         if not self.fused:
             return [self._predict_one_unfused(self._ref_windows(r))
                     for r in batch]
@@ -327,9 +634,10 @@ class EnsembleService:
             packs = {L: gather_windows(buf, patients, ends, valid, L,
                                        impl=self.impl) for L in lens}
         h2d = 3 * 4 * Ppad * len(lens)        # the int32 index triples
+        dev_wins, _ = self._ship_packs(packs)   # D2D for other devices
         marshal_s = time.perf_counter() - t_marshal
         _spans.note("marshal", marshal_s)
-        scores = self._flush(packs, P)
+        scores = self._flush(dev_wins, P)
         with self._count_lock:
             self.h2d_bytes += h2d
             self.marshal_seconds += marshal_s
@@ -373,17 +681,19 @@ class EnsembleService:
     def _predict_batch_legacy(self, batch) -> List[float]:
         """Pre-refactor hot path: per bucket an [M, Ppad, L, 1] input
         is marshaled by a host (member, patient) double loop and
-        shipped whole — M x L floats per patient per bucket.  Kept
-        behind ``marshal="legacy"`` as a second equivalence oracle."""
+        shipped whole to the bucket's device — M x L floats per patient
+        per bucket.  Kept behind ``marshal="legacy"`` as a second
+        equivalence oracle."""
         P = len(batch)
         Ppad = pow2_rung(P)
         ys = []
         h2d = 0
         t_marshal = time.perf_counter()
         guard = self.dispatch_guard
-        for b in self._buckets:
+        buckets = self._buckets
+        for b in buckets:
             if guard is not None:
-                guard(None)
+                guard(b.device)
             L = b.spec.input_len
             xs = np.zeros((len(b.idx), Ppad, L, 1), np.float32)
             for j, lead in enumerate(b.leads):
@@ -391,8 +701,7 @@ class EnsembleService:
                     clip = np.asarray(w["ecg"])[lead, -L:]
                     xs[j, p, L - clip.shape[-1]:, 0] = clip
             h2d += xs.nbytes
-            ys.append(_bucket_scores(b, to_device(xs, self.device),
-                                     self.impl))
+            ys.append(_bucket_scores(b, to_device(xs, b.tdev), self.impl))
         marshal_s = time.perf_counter() - t_marshal
         # legacy interleaves marshal + dispatch per bucket; attribute
         # the whole pre-gather segment to marshal
@@ -401,8 +710,8 @@ class EnsembleService:
             self.dispatch_count += len(ys)
             self.h2d_bytes += h2d
             self.marshal_seconds += marshal_s
-        return self._combine(self._retire(ys, P, time.perf_counter()),
-                             batch)
+        return self._combine(
+            self._retire(buckets, ys, P, time.perf_counter()), batch)
 
     def _predict_one_unfused(self, windows: Dict[str, np.ndarray]
                              ) -> float:

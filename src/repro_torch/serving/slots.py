@@ -1,6 +1,6 @@
 """Slot-based continuous serving engine: the port of
-``repro/serving/slots.py`` (one device; the sharded groups of a
-placement come with the placement slice).
+``repro/serving/slots.py``, with one device group a lane when the
+service carries a placement.
 
 The flush path (``pipeline.EnsembleService.predict_batch``) is
 query-oriented: every micro-batch re-marshals refs, pads, dispatches
@@ -15,7 +15,8 @@ STATE that queries merely read.
   per modality, written in place by ingest); the engine adds the
   host-side slot bookkeeping (occupancy, last-closed-window ints,
   close/score versions) plus a persistent member-score matrix
-  ``[M, Spad]`` float32 on the service's device per device group;
+  ``[M_g, Spad]`` float32 per device group (one group an unsharded
+  service, one a lane of a placement, on that lane's device);
 * ``tick()`` scores **all occupied slots at once**: one ring gather
   per distinct window length (``gather_windows``, the CUDA
   ``window_gather`` kernel on the card — the same call the flush
@@ -122,12 +123,17 @@ def _fleet_mean(mats: Sequence[torch.Tensor],
 
 @dataclasses.dataclass
 class _Group:
-    """Per-device slice of the tick: the buckets run on one device plus
-    that device's persistent member-score state."""
-    device: Optional[torch.device]  # None = the service's own device
+    """Per-lane slice of the tick: the buckets run on one lane plus
+    that lane's persistent member-score state."""
+    device: object                  # the Lane; None = unsharded service
     buckets: List                   # pipeline._Bucket, plan order
     rows: np.ndarray                # global member index per state row
     state: Optional[torch.Tensor]   # [M_g, Spad] float32, folded in place
+
+    @property
+    def tdev(self) -> torch.device:
+        """Where the state lives: its buckets' (the lane's) device."""
+        return self.buckets[0].tdev
 
 
 @dataclasses.dataclass
@@ -250,17 +256,23 @@ class SlotEngine:
         self.n_grows = 0             # census regrowths (ensure_slots)
 
     def _build_groups(self, service) -> List[_Group]:
-        """The device groups in bucket-plan order, each with a ZERO
-        member-score state at the current pad rung.  Every bucket of
-        the port's service runs on the service's own device, so there
-        is one group, keyed None as the reference keys its default
-        device (placement, a later slice, adds one a device)."""
-        buckets = list(service._buckets)
-        rows = np.asarray([i for b in buckets for i in b.idx])
-        return [_Group(device=None, buckets=buckets, rows=rows,
-                       state=torch.zeros((len(rows), self._Spad),
-                                         dtype=torch.float32,
-                                         device=service.device))]
+        """The device groups in bucket-plan order (one a lane of the
+        placement; one keyed None for an unsharded service), each with
+        a ZERO member-score state at the current pad rung on its lane's
+        device."""
+        groups: Dict[object, _Group] = {}
+        for b in service._buckets:
+            g = groups.get(b.device)
+            if g is None:
+                g = _Group(device=b.device, buckets=[],
+                           rows=np.zeros(0, np.int64), state=None)
+                groups[b.device] = g
+            g.buckets.append(b)
+        for g in groups.values():
+            g.rows = np.asarray([i for b in g.buckets for i in b.idx])
+            g.state = torch.zeros((len(g.rows), self._Spad),
+                                  dtype=torch.float32, device=g.tdev)
+        return list(groups.values())
 
     def rebind(self, service) -> None:
         """Point the engine at a new ``EnsembleService`` — the
@@ -445,11 +457,12 @@ class SlotEngine:
             stale |= occ & ((fed - oldest) > cap)
         return stale
 
-    def _occ_device(self, mask: np.ndarray) -> torch.Tensor:
-        """The ``[Spad]`` occupancy mask on the service's device (every
-        group's state lives there until placement lands)."""
-        return to_device(np.pad(mask, (0, self._Spad - self.n_slots)),
-                         self.service.device)
+    def _occ_device(self, mask: np.ndarray
+                    ) -> Dict[torch.device, torch.Tensor]:
+        """The ``[Spad]`` occupancy mask on every device a group's
+        state lives on (one copy a device, shared by its lanes)."""
+        occ = np.pad(mask, (0, self._Spad - self.n_slots))
+        return {d: to_device(occ, d) for d in {g.tdev for g in self.groups}}
 
     def tick(self) -> TickReport:
         """Score every occupied, non-stale slot once: ring gathers +
@@ -571,16 +584,17 @@ class SlotEngine:
                                   stamped=empty, versions=empty,
                                   scores=np.zeros(0), spad=spad)
 
+        dev_wins, _ = svc._ship_packs(packs)   # D2D for other devices
         group_cands: List[List[torch.Tensor]] = []
         n_disp = 0
         for g in self.groups:
             cands = []
             for b in g.buckets:
                 if guard is not None:
-                    guard(g.device)
+                    guard(b.device)
                 cands.append(_bucket_scores(
-                    b, _lead_expand(b, packs[b.spec.input_len]),
-                    svc.impl))
+                    b, _lead_expand(b, dev_wins[(b.spec.input_len,
+                                                 b.tdev)]), svc.impl))
             n_disp += len(g.buckets)
             group_cands.append(cands)
 
@@ -589,17 +603,20 @@ class SlotEngine:
         occ_dev = self._occ_device(mask)
         combined = None
         for g, cands in zip(self.groups, group_cands):
-            combined = _masked_update(g.state, cands, occ_dev)
+            combined = _masked_update(g.state, cands, occ_dev[g.tdev])
         self.device_scores = combined if len(self.groups) == 1 else \
-            _fleet_mean([g.state for g in self.groups], svc.device)
+            _fleet_mean([g.state for g in self.groups],
+                        self.groups[0].tdev)
 
         # host mirror: exact _combine numerics (float64 mean over the
         # member column + CPU-side vitals/labs models) from one small
-        # readback per group — this sync point plays the flush's
-        # score copy
+        # readback per device (the groups of its lanes concatenated) —
+        # this sync point plays the flush's score copy
         score_mat = np.zeros((len(svc.members), spad))
-        for g in self.groups:
-            score_mat[g.rows] = g.state.cpu().numpy()
+        for d in dict.fromkeys(g.tdev for g in self.groups):
+            mine = [g for g in self.groups if g.tdev == d]
+            host = torch.cat([g.state for g in mine]).cpu().numpy()
+            score_mat[np.concatenate([g.rows for g in mine])] = host
         vit_rows = vit.cpu().numpy() if vit is not None else None
         fresh: Dict[int, float] = {}
         for s in scored:

@@ -30,7 +30,10 @@ expert whose weights hold NaN) and its tensor-core path (C, d and f off
 its tiles).  The slot engine over the reduced zoo on the card: its tick
 bitwise the flush at full and partial occupancy, within the tolerance
 of a tick over the plain versions, and an aborted tick leaving the
-state tensor's bytes.
+state tensor's bytes.  Placement over 4 lanes of the card: flushes and
+ticks bitwise the unsharded service's with the same launches, the
+retire EWMAs from CUDA events, and a lane lost for good quarantined and
+re-placed, bitwise after.
 """
 import numpy as np
 import pytest
@@ -933,7 +936,7 @@ def test_cuda_slot_aborted_tick_leaves_the_state_bytes(cuda_device):
     plane = FaultPlane([FaultEvent(1.0, "device_loss", target=0,
                                    duration=1.0)], clock=lambda: now[0])
     plane.arm()
-    assert plane.devices[0] == cuda_device
+    assert plane.devices[0].device == cuda_device     # lane 0 of the card
     calls = []
 
     def guard(device):
@@ -955,3 +958,98 @@ def test_cuda_slot_aborted_tick_leaves_the_state_bytes(cuda_device):
     assert len(rep.stamped) == 8
     assert_bitwise(np.array([eng.read(p) for p in range(8)]), reads,
                    "the same windows again")
+
+
+# ------------------------------------------------ placement over lanes
+def _placed(device, n_lanes=4):
+    """The reduced zoo's unsharded service and the same zoo over
+    ``n_lanes`` lanes of the card (an LPT plan over fixed costs)."""
+    from repro_torch.device import lanes
+    svc, di, _, refs = _slot_census(device)
+    pl = svc.plan_placement(n_lanes, bucket_costs=[0.4, 0.3, 0.2, 0.1])
+    sharded = type(svc)(svc.members, vitals_model=svc.vitals_model,
+                        labs_model=svc.labs_model, placement=pl,
+                        devices=lanes(n_lanes, device))
+    return svc, sharded, di, refs
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_flush_equals_unsharded_over_lanes(cuda_device):
+    """Four lanes of one card: every shard's params on the card, the
+    refs and host-pack flushes bitwise the unsharded ones with the same
+    launches, and one host copy of the pack (one card)."""
+    svc, sharded, di, refs = _placed(cuda_device)
+    assert all(b.tdev == cuda_device for b in sharded._buckets)
+    assert len({b.device for b in sharded._buckets}) == 4
+    for P in (8, 64):
+        counts = []
+        outs = []
+        for s_ in (svc, sharded):
+            before = (kgather.launches.value, kconv.launches_stacked.value)
+            outs.append(np.array(s_.predict_batch(refs[:P])))
+            counts.append((kgather.launches.value - before[0],
+                           kconv.launches_stacked.value - before[1]))
+        assert counts[0] == counts[1] and counts[0][1] > 0
+        assert_bitwise(outs[1], outs[0], f"refs P={P}")
+    wins = [{"ecg": r.host_window("ecg")} for r in refs[:8]]
+    h0 = (svc.h2d_bytes, sharded.h2d_bytes)
+    assert_bitwise(np.array(sharded.predict_batch(wins)),
+                   np.array(svc.predict_batch(wins)), "host packs")
+    assert sharded.h2d_bytes - h0[1] == svc.h2d_bytes - h0[0]
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_tick_and_retire_clock(cuda_device):
+    """The slot engine over four lanes of the card: four groups, the
+    tick bitwise the unsharded tick; the flush's retire EWMAs come from
+    CUDA events and a stall at one lane's guard drifts its shards."""
+    import time
+    from repro_torch.serving.slots import SlotEngine
+    svc, sharded, di, refs = _placed(cuda_device)
+    flat, eng = SlotEngine(svc, di), SlotEngine(sharded, di)
+    assert len(eng.groups) == 4
+    for r in refs:
+        flat.update(r)
+        eng.update(r)
+    flat.tick()
+    eng.tick()
+    assert_bitwise(np.array([eng.read(p) for p in range(64)]),
+                   np.array([flat.read(p) for p in range(64)]), "tick")
+    for _ in range(3):
+        sharded.predict_batch(refs[:8])
+    fast = sharded.shard_cost_snapshot()
+    assert len(fast) == 4 and all(v > 0 for v in fast.values())
+    lane0 = sharded._buckets[0].device
+    sharded.dispatch_guard = \
+        lambda lane: time.sleep(0.05) if lane == lane0 else None
+    torch.cuda.synchronize()
+    for _ in range(5):
+        sharded.predict_batch(refs[:8])
+    slow = sharded.shard_cost_snapshot()
+    k0 = tuple(sorted(sharded._buckets[0].idx))
+    assert slow[k0] > fast[k0] + 0.02
+    assert len(sharded.measured_finish_times()) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_lane_loss_quarantined_bitwise(cuda_device):
+    """A permanent loss of lane 2 of 4 under ``protect`` with a
+    ``HotSwapper`` on the card: quarantined, re-placed onto three lanes
+    of the same card, and bitwise the unsharded flush."""
+    from repro_torch.control.faults import FaultEvent, FaultPlane
+    from repro_torch.control.swap import HotSwapper
+    from repro_torch.device import lanes
+    svc, sharded, di, refs = _placed(cuda_device)
+    devs = lanes(4, cuda_device)
+    sw = HotSwapper(svc.members, np.ones(len(svc.members), np.int8),
+                    vitals_model=svc.vitals_model,
+                    labs_model=svc.labs_model, devices=devs,
+                    placement_fn=lambda s: sharded.placement,
+                    warmup_batch_sizes=(8,))
+    plane = FaultPlane([FaultEvent(0.0, "device_loss", target=2)])
+    plane.arm(sw, devices=devs)
+    got = plane.protect(sw.facade.predict_batch, sw)(refs[:8])
+    assert sw.quarantined == [devs[2]] and len(sw.devices) == 3
+    assert {b.tdev for b in sw.facade.current._buckets} == {cuda_device}
+    assert_bitwise(np.array(got), np.array(svc.predict_batch(refs[:8])),
+                   "after failover")

@@ -29,6 +29,7 @@ from repro.control import faults as jf
 from repro.serving import slots as js
 from repro_torch.configs.ecg_zoo import zoo_specs
 from repro_torch.control import faults as tf
+from repro_torch.device import Lane, device_lanes
 from repro_torch.models.ecg_resnext import init_ecg
 from repro_torch.serving import aggregator as ta
 from repro_torch.serving import pipeline as tp
@@ -177,8 +178,11 @@ def test_arm_defaults_to_the_cards_and_needs_one(monkeypatch):
         tf.FaultPlane([]).arm()
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     plane = tf.FaultPlane([]).arm()
-    assert plane.devices == [torch.device("cuda", 0),
-                             torch.device("cuda", 1)]
+    # one lane a card: the same default as EnsembleService and
+    # HotSwapper, so the guard compares lanes with lanes
+    assert plane.devices == [Lane(0, torch.device("cuda", 0)),
+                             Lane(1, torch.device("cuda", 1))]
+    assert plane.devices == device_lanes()
 
 
 def test_protect_retry_budget_matches_the_reference():

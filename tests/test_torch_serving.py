@@ -285,15 +285,21 @@ def test_server_counts_match_jax_server():
 
 
 def test_engines_and_placement_not_ported_yet(zoo):
-    """Placement is not ported yet; the slot engine is, and these calls
-    now fail its argument checks (``test_torch_slots.py``)."""
+    """The slot engine and placement are both ported now; these calls
+    fail their argument checks (``test_torch_slots.py``,
+    ``test_torch_placement.py``)."""
+    from repro_torch.serving.placement import Placement
     _, tm = zoo
     with pytest.raises(ValueError, match="slot_engine"):
         tserver.EnsembleServer(batch_handler=len, engine="slots")
     with pytest.raises(ValueError, match="device_ingest"):
         tp.StreamingPipeline(None, 1, engine="slots", device="cpu")
-    with pytest.raises(NotImplementedError, match="placement"):
-        tp.EnsembleService(tm, placement=object(), device="cpu")
+    half = Placement(assignment=[[0, 1, 2]], loads=[1.0])
+    with pytest.raises(ValueError, match="placement"):
+        tp.EnsembleService(tm, placement=half, device="cpu")
+    whole = Placement(assignment=[list(range(len(tm)))], loads=[1.0])
+    with pytest.raises(ValueError, match="placement"):
+        tp.EnsembleService(tm, placement=whole, fused=False, device="cpu")
 
 
 @pytest.mark.parametrize("fused", [True, False])
