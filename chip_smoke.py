@@ -45,6 +45,20 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    bitwise the unsharded oracle, seconds from the loss to the first
    correct score), a ``re_place`` from the live costs, and the same
    loss mid-tick under ``protect_engine``;
+3d. the closed control loop on the same zoo, models and refs: (a) a
+   ``HotSwapper`` over three bucket-granular rungs (cheap, mid, full)
+   behind an ``EnsembleServer`` tapped by an ``SloTelemetry``, the SLO at
+   the geometric mean of a 64-bed round's p99 at full and at cheap, and
+   ``wire_controller`` stepped by hand: SHED under 64-bed rounds, CLIMB
+   back to full under 8-bed ones, the exporter's ``holmes_served_total``
+   and decision counters equal to the server's and the controller's;
+   (b) RE-PLACE from the retire drift of lane 0 of two (a 20 ms sleep in
+   its guard), the slowed lane's buckets split; (c) a ``TieredEnsemble``
+   over one staging cache under a ``TieredController``, overloaded: the
+   tiers' rungs monotone after every step, the critical tier held until
+   the others are floored, each pair staged once; every served score
+   bitwise an unsharded flush of the same refs by its selector, and the
+   launches of ``window_gather`` and ``conv1d_stripe_stacked`` counted;
 4. the dense-LM serving path through ``repro_torch.launch.serve``:
    qwen3-4b at full width and depth (36 layers; batch 4, prompt 2048,
    32 new tokens), counters reset just before and read just after (36
@@ -2256,6 +2270,392 @@ def phase_placement(torch, np, ctx, record, card):
     return out
 
 
+def phase_control(torch, np, ctx, record, card):
+    """The closed control loop over phase 3's full zoo, models and 64
+    refs.  (a) Fleet shed and climb: a ``HotSwapper`` over three
+    bucket-granular rungs cut from the 20 bucket costs at ``PLAN_BATCH``
+    (cheap, mid, full), behind an ``EnsembleServer`` tapped by an
+    ``SloTelemetry``, the SLO at the geometric mean of a 64-bed round's
+    p99 at full and at cheap; ``wire_controller`` (stepped by hand, with
+    a ``MetricsExporter``) sheds under 64-bed rounds and climbs back
+    under 8-bed ones.  (b) RE-PLACE from retire drift over two lanes of
+    the card, lane 0 slowed by a 20 ms host sleep in its guard, until a
+    step returns REPLACE.  (c) Tiers: a ``TieredEnsemble`` over one
+    staging cache, a ``TieredController`` over a ``TieredTelemetry``
+    and a tiered server over the 64 beds (a third critical), overloaded
+    and stepped by hand.  Every served score is held bitwise to an
+    unsharded flush of the same refs by the selector that scored it.
+    Every check raises on failure."""
+    import threading
+    from repro_torch.control import (ControllerConfig, Decision,
+                                     HotSwapper, SloTelemetry, TIER_ORDER,
+                                     TieredController,
+                                     TieredControllerConfig, TieredEnsemble,
+                                     TieredTelemetry, wire_controller)
+    from repro_torch.device import lanes
+    from repro_torch.kernels import conv1d_stripe as kconv
+    from repro_torch.kernels import window_gather as kgather
+    from repro_torch.obs.export import MetricsExporter
+    from repro_torch.serving.pipeline import PLAN_BATCH, EnsembleService
+    from repro_torch.serving.placement import (grouped_lpt_placement,
+                                               placement_signature)
+    from repro_torch.serving.server import EnsembleServer
+
+    dev, svc, refs = ctx["dev"], ctx["svc"], ctx["refs"]
+    members = ctx["members"]
+    side = {"vitals_model": ctx["vitals"], "labs_model": ctx["labs"]}
+    counters = (kgather.launches, kconv.launches_stacked, kconv.launches)
+    n, beds, failures = len(members), len(refs), []
+    window_s = 2.0                 # the telemetry window the drill ages
+    lock = threading.Lock()
+
+    # ---- the ladder: the cheapest buckets summing to <= 1/4 and <= 1/2
+    # of the 20 bucket costs, and the full zoo
+    costs = svc.measured_bucket_costs(reps=3, batch=PLAN_BATCH)
+    total = float(np.sum(costs))
+
+    def rung(frac):
+        sel, acc = np.zeros(n, np.int8), 0.0
+        for j in np.argsort(costs, kind="stable"):
+            if acc + costs[j] > frac * total:
+                break
+            acc += costs[j]
+            sel[svc._buckets[j].idx] = 1
+        return sel
+
+    names = ("cheap", "mid", "full")
+    ladder = [rung(0.25), rung(0.5), np.ones(n, np.int8)]
+    if not 0 < ladder[0].sum() < ladder[1].sum() < n:
+        raise AssertionError(f"rungs of {[int(s.sum()) for s in ladder]}")
+    oracles = [EnsembleService.for_selector(members, s, device=dev, **side)
+               for s in ladder[:2]] + [svc]
+    member_costs = svc.measured_costs(reps=3)
+
+    def round_(srv, k, tel=None):
+        """``k`` beds submitted at once and drained: the round's
+        latencies; with ``tel``, its arrivals = served + shed + failed."""
+        since = time.monotonic()
+        time.sleep(0.02)                   # past one sketch bucket
+        for bed in range(k):
+            if not srv.submit(bed, refs[bed]):
+                failures.append(f"bed {bed} shed")
+        srv.drain(timeout=60.0)
+        got = srv.results()
+        nan = int(np.isnan([x[1] for x in got]).sum())
+        if len(got) != k or nan:
+            failures.append(f"a {k}-bed round served {len(got)}, NaN {nan}")
+        if tel is not None:
+            s = tel.snapshot(since=since)
+            if not s.n_arrivals == k == s.n_served + s.n_shed + s.n_failed:
+                failures.append(f"telemetry: {s.n_arrivals} arrivals, "
+                                f"{s.n_served} served, {s.n_shed} shed, "
+                                f"{s.n_failed} failed of {k}")
+        return [x[2] for x in got]
+
+    # ---- counters at zero just before the drills, read just after
+    # (the oracle flushes at the end are not the path)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t_phase = time.perf_counter()
+
+    # ==== (a) fleet shed and climb behind the flush server
+    t0 = time.perf_counter()
+    sw = HotSwapper(members, ladder[2], warmup_batch_sizes=(1, 8, 64),
+                    device=dev, **side)
+    sw.set_ladder(ladder, prestage=True)
+    stage_s = time.perf_counter() - t0
+    rung_of = {id(sw.stage(s)): k for k, s in enumerate(ladder)}
+    flushes = []                     # (t_retire, rung, refs, scores)
+
+    def score(batch):
+        cur = sw.facade.current      # the member identity that scores
+        out = list(cur.predict_batch(batch))
+        with lock:
+            flushes.append((time.monotonic(), rung_of[id(cur)],
+                            list(batch), out))
+        return out
+
+    calib = EnsembleServer(batch_handler=score, n_workers=2,
+                           max_batch=64).start()
+    p99 = {}
+    for k, size in ((2, beds), (0, beds), (1, 8)):
+        sw.swap_to(ladder[k])
+        round_(calib, size)                # one untimed round first
+        p99[k, size] = float(np.percentile(round_(calib, size), 99))
+    calib.stop()
+    sw.swap_to(ladder[2])
+    full, cheap, mid8 = p99[2, beds], p99[0, beds], p99[1, 8]
+    slo = math.sqrt(full * cheap)
+    # CLIMB wants a window's p99 under headroom_frac of the SLO: 1.25x
+    # the 8-bed p99 at mid, so that 8-bed rounds climb to full
+    headroom = max(0.5, 1.25 * mid8 / slo)
+    if full < 1.3 * cheap or headroom > 0.95:
+        raise AssertionError(
+            f"64-bed p99 full {1e3 * full:.1f} ms, cheap {1e3 * cheap:.1f}; "
+            f"8-bed p99 mid {1e3 * mid8:.1f}: the drill cannot be run")
+    tel = SloTelemetry(slo_seconds=slo, window_seconds=window_s)
+    srv = EnsembleServer(batch_handler=score, n_workers=2, max_batch=64,
+                         telemetry=tel).start()
+    exporter = MetricsExporter(server=srv)
+    # mu from the per-member batch-1 costs (the reference's profile)
+    # states a 64-wide flush's capacity many times too low, so its
+    # predicted-risk RECOMPOSE would stand through the drill, and an
+    # 8-bed load after a 64-bed one is a drift: both are put out of
+    # reach, as the reference's tick-ladder test does, to drill shed and
+    # climb (the profile is still read and printed)
+    ctl = wire_controller(
+        tel, sw, member_costs=member_costs,
+        config=ControllerConfig(slo_seconds=slo, cooldown_seconds=0.0,
+                                min_samples=16, predicted_factor=1e9,
+                                drift_factor=1e9, headroom_frac=headroom),
+        sync=True, start=False, exporter=exporter)
+    profile = ctl.service_profile_fn()
+    step_ms, sheds, climbs, overload = [], [], [], []
+    by_rung = {0: [], 1: [], 2: []}
+
+    def step():
+        t = time.perf_counter()
+        d = ctl.step()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        return d
+
+    for _ in range(6):                     # 64-bed rounds: SHED
+        k = sw.ladder_pos
+        lat = round_(srv, beds, tel)
+        by_rung[k] += lat
+        overload.append((names[k], 1e3 * float(np.percentile(lat, 99))))
+        d = step()
+        if d is Decision.SHED:
+            sheds.append((time.monotonic(), sw.ladder_pos))
+        elif overload[-1][1] <= 1e3 * slo:
+            break
+    predicted = ctl.snapshot().predicted_latency
+    time.sleep(window_s + 0.1)             # the overload ages out
+    for _ in range(24):                    # 8-bed rounds: CLIMB
+        k = sw.ladder_pos
+        by_rung[k] += round_(srv, 8, tel)
+        if step() is Decision.CLIMB:
+            climbs.append(sw.ladder_pos)
+        if sw.ladder_pos == 2:
+            break
+    srv.stop()
+    shed_to_cheaper = [min(t for t, k, _, _ in flushes
+                           if t > t_s and k == pos) - t_s
+                       for t_s, pos in sheds]
+    served, counts = srv.stats.served, ctl.decision_counts()
+    metric = {}
+    for line in exporter.render().splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            metric[key] = float(val)
+    exported = {k: metric.get(f'holmes_controller_decisions_total'
+                              f'{{decision="{k}"}}') for k in counts}
+    if srv.leaked or srv.stats.failed or not sheds or not climbs \
+            or sw.ladder_pos != 2:
+        failures.append(f"(a): sheds {len(sheds)}, climbs {climbs}, rung "
+                        f"{sw.ladder_pos}, failed {srv.stats.failed}, "
+                        f"leaked {srv.leaked}")
+    if metric.get("holmes_served_total") != served \
+            or exported != {k: float(v) for k, v in counts.items()}:
+        failures.append(f"exporter: served {metric.get('holmes_served_total')}"
+                        f" vs {served}, decisions {exported} vs {counts}")
+    tap = SloTelemetry(slo_seconds=slo, window_seconds=window_s)
+    t = time.perf_counter()
+    for _ in range(20000):
+        tap.record_arrival()
+        tap.record_served(0.05)
+    tap_us = 1e6 * (time.perf_counter() - t) / 20000
+    rung_p99 = {names[k]: 1e3 * float(np.percentile(v, 99))
+                for k, v in by_rung.items() if v}
+    a = {"slo_ms": 1e3 * slo, "headroom_frac": headroom,
+         "calibration_p99_ms": {"full 64": 1e3 * full,
+                                "cheap 64": 1e3 * cheap, "mid 8": 1e3 * mid8},
+         "members": {nm: int(s.sum()) for nm, s in zip(names, ladder)},
+         "stage_s": stage_s, "overload_rounds_p99_ms": overload,
+         "rung_p99_ms": rung_p99,
+         "decisions": [d.value for _, d in ctl.log],
+         "step_ms_p50": float(np.percentile(step_ms, 50)),
+         "tap_us_per_query": tap_us, "shed_to_cheaper_s": shed_to_cheaper,
+         "served": served, "profile_mu_per_s": profile[0],
+         "profile_ts_s": profile[1], "predicted_latency_s": predicted}
+    print(f"  (a) on {card}: rungs {a['members']} members (staged and "
+          f"warmed in {stage_s:.2f} s); SLO {a['slo_ms']:.1f} ms (64-bed p99 full "
+          f"{1e3 * full:.1f}, cheap {1e3 * cheap:.1f}; 8-bed mid "
+          f"{1e3 * mid8:.1f}; headroom {headroom:.2f}); decisions "
+          f"{a['decisions']}; rung p99 (ms) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rung_p99.items())
+          + f"; step() p50 {a['step_ms_p50']:.3f} ms; telemetry tap "
+          f"{tap_us:.2f} us a query; SHED to the first cheaper score (s) "
+          + ", ".join(f"{x:.3f}" for x in shed_to_cheaper)
+          + f"; {served} served; profile mu {profile[0]:.2f}/s, T_s "
+          f"{1e3 * profile[1]:.1f} ms, predicted {predicted:.2f} s",
+          flush=True)
+
+    # ==== (b) RE-PLACE from retire drift, over 2 lanes of the card
+    groups = [list(b.idx) for b in svc._buckets]
+    pl_init = grouped_lpt_placement(
+        groups, [1.0, 1.0] + [0.5] * (len(groups) - 2), 2)
+    devs = lanes(2, dev)
+    t0 = time.perf_counter()
+    sw2 = HotSwapper(members, np.ones(n, np.int8), n_devices=2,
+                     devices=devs, warmup_batch_sizes=(1, 8),
+                     placement_fn=lambda s: pl_init, device=dev, **side)
+    stage2_s = time.perf_counter() - t0
+    sw2.placement_fn = None                # re-planning from the drift
+    slow_keys = {tuple(sorted(b.idx)) for b in sw2.facade.current._buckets
+                 if b.device == devs[0]}
+
+    def guard(lane):
+        if lane == devs[0]:
+            time.sleep(0.02)               # lane 0 slowed down
+
+    sw2.service_hook = lambda s: setattr(s, "dispatch_guard", guard)
+    sw2.facade.current.dispatch_guard = guard
+    flushes2 = []
+
+    def score2(batch):
+        out = list(sw2.facade.predict_batch(batch))
+        with lock:
+            flushes2.append((2, list(batch), out))
+        return out
+
+    tel2 = SloTelemetry(slo_seconds=60.0, window_seconds=60.0)
+    ctl2 = wire_controller(
+        tel2, sw2, member_costs=member_costs,
+        config=ControllerConfig(slo_seconds=60.0, cooldown_seconds=0.0,
+                                min_samples=8, predicted_factor=1e9,
+                                drift_factor=1e9),
+        sync=True, start=False)
+    srv2 = EnsembleServer(batch_handler=score2, n_workers=2, max_batch=8,
+                          telemetry=tel2).start()
+    sig0 = placement_signature(sw2.active_placement)
+    fin_before, replace_s, d2 = None, float("nan"), Decision.HOLD
+    for _ in range(6):
+        round_(srv2, 8)
+        fin_before = sw2.facade.current.measured_finish_times()
+        t = time.perf_counter()
+        d2 = ctl2.step()
+        if d2 is Decision.REPLACE:
+            replace_s = time.perf_counter() - t
+            break
+    new_pl = sw2.active_placement
+    for _ in range(2):
+        round_(srv2, 8)
+    fin_after = sw2.facade.current.measured_finish_times()
+    srv2.stop()
+    split = all(not slow_keys <= {tuple(sorted(b.idx))
+                                  for b in sw2.facade.current._buckets
+                                  if set(b.idx) <= set(slot)}
+                for slot in new_pl.assignment)
+    if d2 is not Decision.REPLACE or placement_signature(new_pl) == sig0 \
+            or not split or len(slow_keys) < 2 or srv2.leaked \
+            or srv2.stats.failed \
+            or srv2.stats.served != sum(len(b) for _, b, _ in flushes2):
+        failures.append(f"(b): decision {d2.value}, plan changed "
+                        f"{placement_signature(new_pl) != sig0}, pair split "
+                        f"{split}, served {srv2.stats.served}, failed "
+                        f"{srv2.stats.failed}")
+    b_out = {"finish_ms_before": [1e3 * x for x in fin_before or []],
+             "finish_ms_after": [1e3 * x for x in fin_after or []],
+             "replace_s": replace_s, "stage_s": stage2_s,
+             "members_per_lane_before": [len(x) for x in pl_init.assignment],
+             "members_per_lane": [len(x) for x in new_pl.assignment],
+             "served": srv2.stats.served}
+    print(f"  (b) on {card}: live finish times (ms) before "
+          + ", ".join(f"{x:.1f}" for x in b_out["finish_ms_before"])
+          + ", after " + ", ".join(f"{x:.1f}" for x in
+                                   b_out["finish_ms_after"])
+          + f"; REPLACE in {replace_s:.3f} s (measure and stage); members "
+          f"per lane {b_out['members_per_lane_before']} -> "
+          f"{b_out['members_per_lane']}; lane 0's {len(slow_keys)} buckets "
+          f"split {split}; {srv2.stats.served} served", flush=True)
+
+    # ==== (c) tiers over one staging cache
+    t0 = time.perf_counter()
+    te = TieredEnsemble(members, initial=ladder[2],
+                        warmup_batch_sizes=(1, 8, 64), device=dev, **side)
+    te.set_ladder(ladder)
+    stage3_s = time.perf_counter() - t0
+    staged0 = len(te.staging.staged)
+    for bed in range(beds):                # beds 1, 4, 7, ...: critical
+        te.registry.assign(bed, TIER_ORDER[(bed + 1) % 3])
+    rung3 = {id(te.swapper("critical").stage(s)): k
+             for k, s in enumerate(ladder)}
+    flushes3 = []
+
+    def score3(batch, tier):
+        cur = te.swapper(tier or te.registry.default).facade.current
+        out = list(cur.predict_batch(batch))
+        with lock:
+            flushes3.append((rung3[id(cur)], list(batch), out))
+        return out
+
+    tel3 = TieredTelemetry(te.tier_of, TIER_ORDER, slo_seconds=slo,
+                           window_seconds=window_s)
+    tier_ctl = TieredController(tel3, te.swappers,
+                                config=TieredControllerConfig(
+                                    slo_seconds=slo, cooldown_seconds=0.0,
+                                    min_samples=16))
+    srv3 = EnsembleServer(batch_handler=score3, tier_of=te.tier_of,
+                          n_workers=2, max_batch=64, telemetry=tel3).start()
+    rungs_seen, monotone = [], True
+    for _ in range(8):
+        round_(srv3, beds)
+        tier_ctl.step()
+        rungs_seen.append(te.rungs())
+        monotone = monotone and te.monotone()
+        if not any(s.can_shed() for s in te.swappers.values()):
+            break
+    srv3.stop()
+    actions = [(tier, d.value) for _, tier, d in tier_ctl.log]
+    held = all(r["stable"] == r["elevated"] == 0
+               for r in rungs_seen if r["critical"] < 2)
+    if not monotone or not held or not actions \
+            or actions[0] != ("stable", "shed") or staged0 != len(ladder) \
+            or len(te.staging.staged) != staged0 or srv3.leaked \
+            or srv3.stats.failed or srv3.stats.served != sum(
+                len(b) for _, b, _ in flushes3):
+        failures.append(f"(c): monotone {monotone}, critical held {held}, "
+                        f"staged {staged0} -> {len(te.staging.staged)}, "
+                        f"actions {actions}, failed {srv3.stats.failed}")
+    print(f"  (c) on {card}: rungs after each step {rungs_seen}; actions "
+          f"{actions}; monotone {monotone}; critical held until no "
+          f"alternative {held}; {staged0} (selector, placement) pairs "
+          f"staged once for 3 tiers in {stage3_s:.2f} s, "
+          f"{len(te.staging.staged)} after the drill", flush=True)
+    torch.cuda.synchronize()
+    launches = {c.name: c.value for c in counters}
+    loop_s = time.perf_counter() - t_phase
+    print(f"  control plane on {card}: launches {launches} in {loop_s:.1f} s",
+          flush=True)
+    if min(launches["window_gather"],
+           launches["conv1d_stripe_stacked"]) <= 0:
+        failures.append(f"a kernel of the path never launched: {launches}")
+
+    # ---- every served score bitwise an unsharded flush of the same
+    # refs by the selector that scored it
+    logged = [f[1:] for f in flushes] + flushes2 + flushes3
+    n_bad = sum(not np.array_equal(np.asarray(out), np.asarray(
+        oracles[k].predict_batch(batch))) for k, batch, out in logged)
+    n_checked = sum(len(batch) for _, batch, _ in logged)
+    if n_bad:
+        failures.append(f"{n_bad} of {len(logged)} flushes not bitwise "
+                        f"their selector's unsharded flush")
+    print(f"  control plane: {n_checked} served scores in {len(logged)} "
+          f"flushes bitwise their selector's unsharded flush {n_bad == 0}",
+          flush=True)
+    out = {"a": a, "b": b_out,
+           "c": {"rungs": rungs_seen, "actions": actions,
+                 "staged": staged0, "stage_s": stage3_s},
+           "launches": launches, "seconds": loop_s,
+           "bitwise_checked": n_checked, "failures": failures}
+    record["control"] = out
+    if failures:
+        raise AssertionError("control plane: " + "; ".join(failures))
+    return out
+
+
 def phase_small_reference(torch, np):
     """The reduced zoo at 1-s windows on the card against the same
     service on the CPU (plain versions): the scores must agree."""
@@ -2377,6 +2777,9 @@ def main() -> int:
 
     print("phase 3c: placement (full zoo, 4 lanes on cuda:0)", flush=True)
     placed = phase_placement(torch, np, ctx, record, card)
+
+    print("phase 3d: control plane (full zoo)", flush=True)
+    control = phase_control(torch, np, ctx, record, card)
 
     print("phase 4: dense-LM serving path (qwen3-4b, full width and "
           "depth; smollm-360m)", flush=True)
@@ -2501,7 +2904,9 @@ def main() -> int:
         "slot ticks (phase 3b, 10 ticks)":
             slots["launches"]["conv1d_stripe_stacked"],
         "placement (phase 3c, 4 lanes: flushes P=8, P=64 and a tick)":
-            placed["launches"]["conv1d_stripe_stacked"]}
+            placed["launches"]["conv1d_stripe_stacked"],
+        "control plane (phase 3d)":
+            control["launches"]["conv1d_stripe_stacked"]}
     conv_m1 = conv_row("conv1d_stripe", ("conv1d_stripe", 1),
                        "src/repro/kernels/conv1d_stripe.py:62")
     conv_m1["max_abs_err"] = max(conv_m1["max_abs_err"],
@@ -2532,7 +2937,8 @@ def main() -> int:
              "slot ticks (phase 3b, 10 ticks)":
                  slots["launches"]["window_gather"],
              "placement (phase 3c, 4 lanes: flushes P=8, P=64 and a tick)":
-                 placed["launches"]["window_gather"]},
+                 placed["launches"]["window_gather"],
+             "control plane (phase 3d)": control["launches"]["window_gather"]},
          "device_ms": g["device_ms"], "host_ms": g["host_ms"],
          "shape": "ECG ring: [64, 3, 16384], P=64, L=7500",
          "vitals": {k: gather["vitals"][k] for k in (

@@ -1,9 +1,9 @@
-"""Deterministic fault-injection plane + recovery wiring (chaos drills):
-the port of ``repro/control/faults.py`` without ``wire_controller``
-(which needs the controller and comes with the control-plane slice).
-Nothing here depends on a framework except ``FaultPlane.arm``, which
-defaults its device list to ``device_lanes()`` (one ``Lane`` a CUDA
-card), the same default as ``EnsembleService`` and ``HotSwapper``.
+"""Deterministic fault-injection plane + recovery wiring (chaos drills),
+and ``wire_controller``, which closes the control loop over a live
+server: the port of ``repro/control/faults.py``.  Nothing here depends
+on a framework except ``FaultPlane.arm``, which defaults its device
+list to ``device_lanes()`` (one ``Lane`` a CUDA card), the same default
+as ``EnsembleService`` and ``HotSwapper``.
 
 HOLMES's claim is always-on sub-second scoring; what makes that claim
 believable is how the stack behaves when something breaks at 3am.  This
@@ -525,3 +525,95 @@ def slot_compound_schedule(n_devices: int, seed: int = 0,
         ev.append(FaultEvent(bp + 0.85 + j(), "device_loss", target=0,
                              duration=0.25))
     return sorted(ev, key=lambda e: e.t)
+
+
+def wire_controller(telemetry, swapper, member_costs=None,
+                    config=None, recompose_fn=None,
+                    period_seconds: float = 0.25, sync: bool = False,
+                    start: bool = True, exporter=None,
+                    on_step: Optional[Callable] = None,
+                    aux_ladder=None):
+    """Run an ``AdaptiveController`` against a REAL ``EnsembleServer``:
+    the server taps ``telemetry`` (pass the same object to
+    ``EnsembleServer(telemetry=...)``), and the returned controller's
+    monitor loop actuates shed/climb/recompose/RE-PLACE on ``swapper``
+    from that live wall-clock feed — the end-to-end loop the DES only
+    simulated.
+
+    ``member_costs`` (per-member service seconds, e.g. from
+    ``EnsembleService.measured_costs``) powers the service profile: mu
+    from the active selector's total cost (scaled by ``swapper.speeds``
+    on a heterogeneous pool, else by ``max(1, swapper.n_devices)`` —
+    the reference's formula, which over N lanes of one card counts N
+    times the card's capacity).  T_s and imbalance prefer the LIVE
+    per-slot finish times measured from shard retire EWMAs
+    (``EnsembleService.measured_finish_times``) — a lane that slowed
+    down after planning shows up there, never in the planned loads —
+    falling back to the ACTIVE placement's finish-time
+    makespan/imbalance (never a fresh idealized LPT plan: a
+    deliberately unbalanced post-failover plan must be profiled as
+    what it is).
+
+    ``exporter`` (an ``obs.export.MetricsExporter``) is attached to the
+    returned controller so scrapes see live decision counters;
+    ``on_step(decision)`` is invoked after every control iteration —
+    the hook benches use to dump metrics on actuation.
+
+    ``aux_ladder`` (a ``serving.slots.TickLadder``) adds tick RATE as
+    a cheaper first degradation rung: the controller sheds the aux
+    ladder before members and climbs members before the aux ladder
+    (LIFO undo), so a pressured slot engine slows its ticks before it
+    thins its ensemble.
+    """
+    from repro_torch.control.controller import AdaptiveController
+
+    costs = None if member_costs is None \
+        else np.asarray(member_costs, np.float64)
+
+    def profile_fn():
+        from repro_torch.serving.placement import finish_imbalance
+        sel = np.asarray(swapper.active_selector, bool)
+        pl = swapper.active_placement
+        svc = getattr(getattr(swapper, "facade", None), "current", None)
+        fin = getattr(svc, "measured_finish_times", None)
+        fin = fin() if callable(fin) else None
+        if fin is not None and pl is not None \
+                and len(fin) == pl.n_slots:
+            ts_live, imb = max(fin), finish_imbalance(fin)
+        elif pl is not None:
+            ts_live, imb = pl.makespan, pl.imbalance
+        else:
+            ts_live, imb = None, float("nan")
+        if costs is None:
+            return (float("inf"), ts_live or 0.0, imb)
+        total = float(costs[sel].sum()) or 1e-9
+        speeds = getattr(swapper, "speeds", None)
+        capacity = float(np.sum(speeds)) if speeds else \
+            max(1, getattr(swapper, "n_devices", 1))
+        ts = ts_live if ts_live is not None else total
+        return (capacity / total, ts, imb)
+
+    ctl = AdaptiveController(telemetry, swapper, recompose_fn=recompose_fn,
+                             config=config, service_profile_fn=profile_fn,
+                             sync=sync, aux_ladder=aux_ladder)
+    if exporter is not None:
+        # scrapes read the live controller/telemetry from now on
+        exporter.controller = ctl
+        if exporter.telemetry is None:
+            exporter.telemetry = telemetry
+        ctl.exporter = exporter
+    if on_step is not None:
+        base_step = ctl.step
+
+        def stepped(now=None):
+            decision = base_step(now)
+            try:
+                on_step(decision)
+            except Exception:          # an observer must never kill
+                log.exception("wire_controller on_step hook failed")
+            return decision
+
+        ctl.step = stepped             # monitor loop resolves the attr
+    if start:
+        ctl.start(period_seconds=period_seconds)
+    return ctl

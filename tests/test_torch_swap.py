@@ -14,9 +14,9 @@ the real swapper, over CPU lanes.
   bitwise the unsharded oracle's; a transient loss waits it out.
 
 The reference proves these on forced host devices; here the lanes are
-``repro_torch.device.lanes(n, "cpu")``.  Left out: the reference's
-``test_retire_drift_feeds_replace`` needs the controller and telemetry,
-which are not ported yet.
+``repro_torch.device.lanes(n, "cpu")``.  The reference's
+``test_retire_drift_feeds_replace`` (the controller's RE-PLACE through
+``wire_controller``) has its counterpart in ``test_torch_control.py``.
 """
 import time
 
