@@ -88,7 +88,25 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    materialized ones (2e-3), one absorbed step against plain (1e-4),
    both forms against the teacher-forced forward on a 512-token prompt,
    and both decode times;
-8. a ``kernels`` JSON line (the seven ported kernels), and the last line
+8. training, with cuDNN's and cuBLAS's TF32 switched on for the process
+   (each train step must turn them off and put them back): (a) the
+   largest full-zoo member (w128_b16, 30-s clips), 3 steps at batch 32
+   on the card: at each step, from the card's params, the loss within
+   1e-4 of the CPU's, and at step 1 (the shared init) every grad too
+   (the later steps' grads, both sides' distances from a float64 CPU
+   step and the two independent trajectories reported); (b)
+   ``build_zoo`` of the 60-member full zoo on the card (20 steps a
+   member, a short cohort) into a fresh cache under ``build/``, its
+   launches counted (``conv1d_stripe`` for its predictions and cost
+   measurements, nothing else), a second call restoring every member
+   bitwise, the card's scores against the CPU's
+   for the largest and smallest member, ``compose`` over its profilers
+   at ``binding_budget``; (c) smollm-360m at full width and depth: one
+   step's loss and every grad (B=1, S=64) against the CPU's, then 25
+   steps at B=8, S=128 through ``launch/train.py``'s argv, its loss
+   falling; (d) the kernel guard: ``ecg_apply`` on params that require
+   grad with ``impl="cuda"`` raises before any launch;
+9. a ``kernels`` JSON line (the seven ported kernels), and the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``ssd`` (y and hT) and ``moe_gmm`` against their
@@ -101,8 +119,9 @@ conv calls, every ``decode_attention`` shape and ``ssd`` get each call's
 device time (a CUDA graph) and host time beside the event-timed figure
 (``decode_attention`` and ``ssd`` with their plan and scratch bytes).
 ``--only=gather,flash`` runs phase 2 for the named kernels alone
-(``--only=flush``: phase 3 alone, its flush times and host stages) and
-prints no result line.  ``--profile`` adds one traced flush at P=8 and at P=64 after phase 3 and
+(``--only=flush``: phase 3 alone, its flush times and host stages;
+``--only=train``: phase 8 alone) and prints no result line.
+``--profile`` adds one traced flush at P=8 and at P=64 after phase 3 and
 one traced prefill and decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe
 and deepseek-v2-lite (and one absorbed step) (``torch.profiler``):
 device time by kernel and the card's idle share.
@@ -2656,6 +2675,355 @@ def phase_control(torch, np, ctx, record, card):
     return out
 
 
+class _Expect:
+    """``with _Expect(RuntimeError, "no backward"):`` passes only when
+    the block raises that error with that text; another error goes on
+    up, and a block that raises nothing raises ``AssertionError``."""
+
+    def __init__(self, exc, text: str):
+        self.exc, self.text = exc, text
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, val, tb):
+        if typ is None:
+            raise AssertionError(f"expected {self.exc.__name__} "
+                                 f"({self.text!r}); nothing was raised")
+        return issubclass(typ, self.exc) and self.text in str(val)
+
+
+def _tree_err(torch, got, want, hold: bool = True) -> float:
+    """Max abs difference over the leaves of two params trees (any
+    devices and float types); with ``hold``, raises unless every pair is
+    within rtol = atol = ``TOL``."""
+    from repro_torch.models.ecg_resnext import leaves
+
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(leaves(got), leaves(want))):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        if a.shape != b.shape or (hold and not torch.allclose(
+                a, b, rtol=TOL, atol=TOL)):
+            raise AssertionError(f"leaf {i}: {tuple(a.shape)} vs "
+                                 f"{tuple(b.shape)}, max err "
+                                 f"{float((a - b).abs().max())}")
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def phase_training(torch, np, record, card):
+    """Training at full width (phase 8), with cuDNN's and cuBLAS's TF32
+    switched ON for the process, as a standalone launcher finds them:
+    every train step must turn them off itself (``Fp32Step``) and put
+    them back.  (a) the largest full-zoo member, 3 steps at batch 32:
+    at each step of the card's trajectory, from the card's params on the
+    step's minibatch, the loss on the card against the CPU's; at step 1,
+    from the shared init, every grad too.  Reported, not held: the
+    grads of steps 2 and 3 (each fp32 side measured up to ~5e-4 from a
+    float64 step there: after Adam's first steps the GroupNorm-heavy
+    trunk sums 120000 terms a channel into grads good to ~1e-3 in L2,
+    whichever order sums them) and the two independent trajectories
+    (Adam divides each moment by its root mean square, eps 1e-8, so
+    rounding noise in a near-zero grad becomes a step of up to the
+    learning rate: two fp32 runs part by ~1e-3 in the params within 3
+    steps); (b) ``build_zoo`` of the
+    full zoo on the card into a fresh cache, restored bitwise by a
+    second call, the card's scores against the CPU's and ``compose``
+    over its profilers; (c) smollm-360m at full width and depth: one
+    step's loss and grads against the CPU's, then 25 steps through the
+    launcher's argv; (d) the kernel guard.  The training path launches
+    no kernel: the counters stay at 0 through (a) and (c), and (b)'s
+    launches are its predictions' and cost measurements'
+    ``conv1d_stripe`` calls, counted exactly."""
+    import shutil
+
+    from repro_torch.benchmarks import zoo_setup
+    from repro_torch.configs.ecg_zoo import zoo_specs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.composer import ComposerParams, compose
+    from repro_torch.core.profiles import SystemConfig
+    from repro_torch.kernels import conv1d_stripe as kconv
+    from repro_torch.kernels import decode_attention as kdecode
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import moe_gmm as kgmm
+    from repro_torch.kernels import ssd as kssd
+    from repro_torch.kernels import window_gather as kgather
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.api import get_model
+    from repro_torch.models.ecg_resnext import (ecg_apply, init_ecg,
+                                                leaves, map_params)
+    from repro_torch.models.runtime import RuntimeOptions
+    from repro_torch.training.data import (lm_batches, make_icu_dataset,
+                                           split_by_patient)
+    from repro_torch.training.optimizer import AdamW, constant_schedule
+    from repro_torch.training.train_loop import (Fp32Step, ecg_loss,
+                                                 ecg_predict_proba,
+                                                 lm_loss, train_ecg_model,
+                                                 value_and_grad)
+
+    dev = torch.device("cuda:0")
+    counters = (kgather.launches, kconv.launches_stacked, kconv.launches,
+                kflash.launches, kdecode.launches, kssd.launches,
+                kgmm.launches)
+
+    def reset():
+        for c in counters:
+            c.reset()
+
+    def counts():
+        return {c.name: c.value for c in counters}
+
+    def no_launch(where):
+        if any(counts().values()):
+            raise AssertionError(f"{where} launched a kernel: {counts()}")
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    out = {}
+
+    # ---- (a) the largest member, 3 steps at batch 32
+    cohort = dict(n_patients=12, clips=4, seconds=30)
+    data = make_icu_dataset(cohort["n_patients"], cohort["clips"],
+                            seed=SEED, seconds=cohort["seconds"])
+    train, _ = split_by_patient(data, holdout=4)
+    specs = zoo_specs(reduced=False)
+    big = max(specs, key=lambda s: (s.width, s.blocks))
+    small = min(specs, key=lambda s: (s.width, s.blocks))
+    x, y = train["ecg"][:, big.lead, :], train["label"]
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_card, l_card = train_ecg_model(big, x, y, steps=3, batch=32,
+                                     seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_cpu, l_cpu = train_ecg_model(big, x, y, steps=3, batch=32, seed=SEED,
+                                   device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if any(t.requires_grad for t in leaves(p_card)):
+        raise AssertionError("trained params still require grad")
+    # the card's trajectory again, step by step: from the card's params
+    # on the step's minibatch, the loss on the card against the CPU's
+    # (held at every step), every grad against the CPU's (held at step 1,
+    # from the shared init) and the card's and the CPU's grads against
+    # the CPU's in float64 (reported)
+    opt = AdamW(lr=constant_schedule(1e-3), weight_decay=1e-4)
+    params = init_ecg(big, torch.Generator().manual_seed(SEED), dev)
+    state = opt.init(params)
+    rng = np.random.default_rng(SEED)
+    cpu = torch.device("cpu")
+    steps = []
+    for k in range(3):
+        idx = rng.integers(0, len(x), size=min(32, len(x)))
+        xb, yb = torch.from_numpy(x[idx])[..., None], torch.from_numpy(y[idx])
+        runs = []
+        for d, dt in ((dev, torch.float32), (cpu, torch.float32),
+                      (cpu, torch.float64)):
+            with Fp32Step(d):
+                runs.append(value_and_grad(
+                    lambda q: ecg_loss(q, xb.to(d, dt), yb.to(d), big),
+                    map_params(params, lambda t: t.to(d, dt))))
+        (l_d, g_d), (l_c, g_c), (l_64, g_64) = runs
+        if abs(float(l_d) - float(l_c)) > TOL * (1 + abs(float(l_c))):
+            raise AssertionError(f"{big.name} step {k + 1}: loss card "
+                                 f"{float(l_d)}, CPU {float(l_c)}")
+        steps.append({
+            "loss_card": float(l_d), "loss_cpu": float(l_c),
+            "loss_cpu64": float(l_64),
+            "grad_err_card_cpu": _tree_err(torch, g_d, g_c, hold=k == 0),
+            "grad_err_card_cpu64": _tree_err(torch, g_d, g_64, hold=False),
+            "grad_err_cpu_cpu64": _tree_err(torch, g_c, g_64, hold=False)})
+        with Fp32Step(dev):
+            params, state = opt.update(g_d, state, params)
+    no_launch("ECG training")
+    if not np.allclose([s["loss_card"] for s in steps], l_card, rtol=TOL,
+                       atol=TOL):
+        raise AssertionError(f"the stepwise losses {steps} are not the "
+                             f"trainer's {l_card}")
+    traj = {"loss_max_abs_err": float(np.abs(np.array(l_card)
+                                             - np.array(l_cpu)).max()),
+            "param_max_abs_err": _tree_err(torch, p_card, p_cpu,
+                                           hold=False)}
+    out["largest_member"] = {
+        "member": big.name, "n_train": len(x), "card_s_3_steps": card_s,
+        "cpu_s_3_steps": cpu_s, "steps": steps,
+        "independent_trajectories": traj}
+    print(f"  (a) {big.name} on {card}, 3 steps at batch 32 (L=7500): card "
+          f"{card_s:.2f} s, CPU {cpu_s:.2f} s; from the card's params at "
+          f"each step, card vs CPU max abs err: grads "
+          f"{[round(s['grad_err_card_cpu'], 8) for s in steps]}, losses "
+          f"{[abs(s['loss_card'] - s['loss_cpu']) for s in steps]} (card "
+          f"vs CPU float64 grads "
+          f"{[round(s['grad_err_card_cpu64'], 8) for s in steps]}, CPU vs "
+          f"float64 {[round(s['grad_err_cpu_cpu64'], 8) for s in steps]});"
+          f" the two independent trajectories (reported): losses "
+          f"{traj['loss_max_abs_err']:.3g}, params "
+          f"{traj['param_max_abs_err']:.3g} apart; no kernel launched",
+          flush=True)
+
+    # ---- (b) the full zoo on the card, into a fresh cache
+    cache = ROOT / "build" / "zoo_cache_torch_smoke"
+    shutil.rmtree(cache, ignore_errors=True)
+    zoo_kw = dict(reduced=False, steps=20, seed=SEED, verbose=False,
+                  cache=cache, device=dev, **cohort)
+    reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    zoo, extras = zoo_setup.build_zoo(**zoo_kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_val = len(extras["val"]["label"])
+    convs = {s.name: 1 + 3 * s.blocks for s in specs}   # stem + 3 a block
+    want = sum(c * (-(-n_val // 256) + 4) for c in convs.values())
+    expect = dict.fromkeys(build_launches, 0)
+    expect["conv1d_stripe"] = want
+    if build_launches != expect:
+        raise AssertionError(f"zoo build launches {build_launches}, want "
+                             f"{expect} (its predictions and costs)")
+    if sorted(extras["trained"]) != sorted(s.name for s in specs):
+        raise AssertionError(f"trained {len(extras['trained'])} of "
+                             f"{len(specs)} members")
+    reset()
+    t0 = time.perf_counter()
+    zoo2, extras2 = zoo_setup.build_zoo(**zoo_kw)
+    restore_s = time.perf_counter() - t0
+    restore_launches = counts()
+    expect["conv1d_stripe"] = sum(convs.values()) * -(-n_val // 256)
+    if restore_launches != expect:
+        raise AssertionError(f"restore launches {restore_launches}, want "
+                             f"{expect} (its predictions)")
+    if extras2["trained"]:
+        raise AssertionError(f"second build trained {extras2['trained']}")
+    for s in specs:
+        a, b = extras2["params"][s.name], extras["params"][s.name]
+        for ta, tb in zip(leaves(a), leaves(b)):
+            if not torch.equal(ta, tb):
+                raise AssertionError(f"{s.name}: restored params differ")
+    if not np.array_equal(zoo2.val_scores, zoo.val_scores):
+        raise AssertionError("restored zoo scores differ")
+    score_err = {}
+    for s in (big, small):
+        i = specs.index(s)
+        cpu = ecg_predict_proba(map_params(extras["params"][s.name],
+                                           lambda t: t.cpu()),
+                                extras["val"]["ecg"][:, s.lead, :], s)
+        score_err[s.name] = float(np.abs(cpu - zoo.val_scores[i]).max())
+        if not np.allclose(zoo.val_scores[i], cpu, rtol=TOL, atol=TOL):
+            raise AssertionError(f"{s.name}: card scores vs CPU "
+                                 f"{score_err[s.name]}")
+    f_a, f_l = zoo_setup.make_profilers(zoo, SystemConfig(), extras)
+    budget = zoo_setup.binding_budget(zoo, f_l)
+    t0 = time.perf_counter()
+    res = compose(len(zoo), f_a, f_l, budget, ComposerParams(N=4, M=100))
+    compose_s = time.perf_counter() - t0
+    if not (res.feasible and 0 < int(res.b_star.sum()) < len(zoo)):
+        raise AssertionError(f"compose at budget {budget}: feasible "
+                             f"{res.feasible}, {int(res.b_star.sum())} "
+                             "members")
+    aucs = [p.val_auc for p in zoo.profiles]
+    steps_s = {s.name: 20 / extras["trained"][s.name] for s in (small, big)}
+    out["zoo"] = {
+        "members": len(specs), "cohort": cohort, "steps": 20,
+        "n_val": n_val, "build_s": build_s, "restore_s": restore_s,
+        "peak_bytes": peak, "launches": build_launches,
+        "restore_launches": restore_launches,
+        "train_s": extras["trained"], "steps_per_s": steps_s,
+        "auc_range": [min(aucs), max(aucs)],
+        "card_vs_cpu_score_err": score_err, "budget_s": budget,
+        "composed": {"members": int(res.b_star.sum()),
+                     "accuracy": res.accuracy, "latency_s": res.latency,
+                     "seconds": compose_s},
+        "measured_costs_s": extras["measured_costs"]}
+    print(f"  (b) full zoo on {card} ({len(specs)} members, 20 steps at "
+          f"batch 32 on "
+          f"{len(extras['train']['label'])} clips): build {build_s:.1f} s "
+          f"(restore {restore_s:.1f} s, bitwise); steps/s {small.name} "
+          f"{steps_s[small.name]:.1f}, {big.name} {steps_s[big.name]:.1f}; "
+          f"peak {peak / 2**30:.2f} GiB; val AUC {min(aucs):.3f} .. "
+          f"{max(aucs):.3f}; launches {build_launches} (restore "
+          f"{restore_launches}); card vs CPU scores {score_err}; composed "
+          f"{int(res.b_star.sum())} members at budget {budget * 1e3:.1f} "
+          f"ms (AUC {res.accuracy:.3f})", flush=True)
+
+    # ---- (c) smollm-360m at full width and depth
+    cfg = get_config("smollm-360m")
+    rt = RuntimeOptions(impl="torch")
+    params = get_model(cfg).init(torch.Generator(device=dev).manual_seed(
+        SEED), cfg, RuntimeOptions(), dev)
+    b = next(lm_batches(cfg.vocab_size, 1, 64, seed=SEED))
+    reset()
+    with Fp32Step(dev):
+        l_dev, g_dev = value_and_grad(lambda p: lm_loss(
+            p, {k: torch.from_numpy(v).to(dev) for k, v in b.items()}, cfg,
+            rt), params)
+    no_launch("the LM train step")
+    p_cpu = map_params(params, lambda t: t.cpu())
+    del params
+    l_cpu, g_cpu = value_and_grad(lambda p: lm_loss(
+        p, {k: torch.from_numpy(v) for k, v in b.items()}, cfg, rt), p_cpu)
+    if abs(float(l_dev) - float(l_cpu)) > TOL * (1 + abs(float(l_cpu))):
+        raise AssertionError(f"smollm-360m loss card {float(l_dev)} vs CPU "
+                             f"{float(l_cpu)}")
+    grad_err = _tree_err(torch, g_dev, g_cpu)
+    del g_dev, g_cpu, p_cpu
+    torch.cuda.empty_cache()
+    argv = ["--arch", "smollm-360m", "--steps", "25", "--batch", "8",
+            "--seq", "128", "--seed", str(SEED)]
+    reset()
+    r = launch_train.run(launch_train.parse_args(argv))
+    no_launch("launch/train.py")
+    losses = r["losses"]
+    if not (np.all(np.isfinite(losses))
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise AssertionError(f"smollm-360m 25 steps: losses {losses}")
+    ms = 1e3 * r["wall_s"] / 25
+    out["lm"] = {
+        "arch": "smollm-360m", "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "step_check": {
+            "B": 1, "S": 64, "loss_card": float(l_dev),
+            "loss_cpu": float(l_cpu), "grad_max_abs_err": grad_err},
+        "argv": argv, "losses": losses, "wall_s": r["wall_s"],
+        "ms_per_step": ms, "tokens_per_s": 25 * 8 * 128 / r["wall_s"],
+        "peak_bytes": r["peak_bytes"]}
+    print(f"  (c) smollm-360m on {card} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}): one step at B=1 S=64, loss card "
+          f"{float(l_dev):.6f} CPU {float(l_cpu):.6f}, grads max abs err "
+          f"{grad_err:.3g}; launcher 25 steps at B=8 S=128: "
+          f"{ms:.1f} ms a step, {out['lm']['tokens_per_s']:.0f} tokens/s, "
+          f"peak {r['peak_bytes'] / 2**30:.2f} GiB; loss "
+          f"{np.mean(losses[:5]):.4f} -> {np.mean(losses[-5:]):.4f} "
+          f"(means of the first and last 5)", flush=True)
+
+    # ---- (d) the guard, and the flags put back
+    p_rg = map_params(init_ecg(small, torch.Generator().manual_seed(SEED),
+                               dev), lambda t: t.requires_grad_())
+    xg = torch.zeros((2, small.input_len, 1), device=dev)
+    reset()
+    with _Expect(RuntimeError, "no backward"):
+        ecg_apply(p_rg, xg, small, impl="cuda")
+    no_launch("the refused call")
+    with torch.no_grad():
+        ecg_apply(p_rg, xg, small, impl="cuda")
+    if kconv.launches.value != convs[small.name]:
+        raise AssertionError(f"under no_grad: {counts()}")
+    if (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) != (True, True):
+        raise AssertionError("a train step left the TF32 flags changed")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = flags
+    print(f"  (d) guard: ecg_apply on params that require grad, impl=cuda, "
+          f"raised before any launch; under no_grad "
+          f"{kconv.launches.value} conv1d_stripe launches; TF32 flags "
+          f"restored after every step", flush=True)
+    record["training"] = out
+    return out
+
+
 def phase_small_reference(torch, np):
     """The reduced zoo at 1-s windows on the card against the same
     service on the CPU (plain versions): the scores must agree."""
@@ -2682,7 +3050,7 @@ def phase_only(torch, np, F, specs, record, card, names) -> int:
     """``--only=gather,flash,...``: phase 2 for the named kernels alone
     (gather, conv, mamba_conv, flash, decode, ssd, gmm), or ``flush``:
     phase 3 alone (the full zoo's main path and its P=8/P=64 flush
-    times and host stages), its records in
+    times and host stages), or ``train``: phase 8 alone, its records in
     ``chiprun_out/chip_smoke_only.json``; no result line."""
     phases = {"flush": lambda: phase_main(torch, np, specs, record, card),
               "gather": lambda: phase_gather(torch, np, record),
@@ -2691,7 +3059,8 @@ def phase_only(torch, np, F, specs, record, card, names) -> int:
               "flash": lambda: phase_flash(torch, np, F, record),
               "decode": lambda: phase_decode(torch, np, F, record),
               "ssd": lambda: phase_ssd(torch, record),
-              "gmm": lambda: phase_gmm(torch, record)}
+              "gmm": lambda: phase_gmm(torch, record),
+              "train": lambda: phase_training(torch, np, record, card)}
     unknown = [n for n in names if n not in phases]
     if unknown:
         raise ValueError(f"--only: unknown phases {unknown}; known: "
@@ -2882,6 +3251,10 @@ def main() -> int:
           f"{27 * da['ms'] / ds['absorbed_decode_ms_per_token']:.3f}",
           flush=True)
 
+    torch.cuda.empty_cache()
+    print("phase 8: training (full ECG zoo; smollm-360m)", flush=True)
+    training = phase_training(torch, np, record, card)
+
     def conv_row(name, key, replaces):
         t = conv[key]
         return {"name": name, "route": "cuda",
@@ -2913,7 +3286,11 @@ def main() -> int:
                                  *(v["max_abs_err"] for v in mconv.values()))
     conv_m1["launches_by_path"] = {
         "ecg per-member oracle query": launches["conv1d_stripe"],
-        "mamba2-2.7b": mamba["launches"]["conv1d_stripe"]}
+        "mamba2-2.7b": mamba["launches"]["conv1d_stripe"],
+        "ecg zoo build (phase 8: val predictions and cost measurements)":
+            training["zoo"]["launches"]["conv1d_stripe"],
+        "ecg zoo restore (phase 8: val predictions)":
+            training["zoo"]["restore_launches"]["conv1d_stripe"]}
     conv_m1["mamba_short_conv"] = {
         f"[4,2048,{c}]": {k: v[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path",

@@ -185,6 +185,18 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+def no_backward(name: str) -> RuntimeError:
+    """The error a wrapper raises, before anything else, when grad is on
+    and an input requires grad: the kernel fills its output through
+    ``ctypes``, so the output would carry no ``grad_fn`` and every
+    weight upstream would silently get no gradient."""
+    return RuntimeError(
+        f"{name}: the CUDA kernel has no backward, and an input requires "
+        "grad; training runs the plain versions (impl='torch', as the "
+        "reference trains through impl='xla'), or call under "
+        "torch.no_grad()")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """The kernels run on the card only: a CPU tensor is an error here
     (``kernels.ops`` sends CPU tensors to the plain versions)."""

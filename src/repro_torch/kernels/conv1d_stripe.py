@@ -58,6 +58,9 @@ _entry = []          # the C entry point, once the library is loaded
 def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
             stride: int, groups: int, padding: str, stacked: bool,
             name: str, force_direct: bool) -> torch.Tensor:
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or (
+            b is not None and b.requires_grad)):
+        raise _build.no_backward(name)
     key = (x.shape, w.shape, None if b is None else b.shape, stride, groups,
            padding, stacked)
     plan = _plans.get(key)

@@ -250,6 +250,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int); all on one card.  Returns ``[B, Hq, Dv]``.  ``causal=False``
     drops the causal part of the mask (``ops.attention`` passes its own
     flag through)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise _build.no_backward("decode_attention")
     if isinstance(qpos, int):
         qpos = torch.full((1,), qpos, dtype=_I32, device=q.device)
     # device, dtype, contiguity and alignment, on every call (one

@@ -28,6 +28,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, T, Hkv, Dv]`` with ``Hkv | Hq``; qpos ``[S]``, kpos ``[T]``
     int32 (``kpos < 0`` = empty slot); all float32, contiguous, on one
     card.  Returns ``[B, S, Hq, Dv]``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise _build.no_backward("flash_attention")
     if q.dim() == 4 and q.shape[1] == 1:
         raise ValueError("flash_attention: one query token (S = 1) is a "
                          "decode step: use kernels.decode_attention "

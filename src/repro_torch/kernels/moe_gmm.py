@@ -29,6 +29,10 @@ def moe_gmm(xbuf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor) -> torch.Tensor:
     """xbuf ``[E, C, d]``; w_gate, w_up ``[E, d, f]``; w_down ``[E, f,
     d]``; all float32, contiguous, on one card.  Returns ``[E, C, d]``."""
+    if torch.is_grad_enabled() and (xbuf.requires_grad or w_gate.requires_grad
+                                    or w_up.requires_grad
+                                    or w_down.requires_grad):
+        raise _build.no_backward("moe_gmm")
     dev = _build.require_cuda("moe_gmm", xbuf, w_gate, w_up, w_down)
     for t in (xbuf, w_gate, w_up, w_down):
         if t.dtype != torch.float32 or t.dim() != 3:

@@ -40,6 +40,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     contiguous, on one card.  Returns (y ``[B, S, H, P]``, hT ``[B, H,
     P, N]``)."""
     tensors = (x, dt, A, B_, C, D) + (() if h0 is None else (h0,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise _build.no_backward("ssd")
     dev = _build.require_cuda("ssd", *tensors)
     for t in tensors:
         if t.dtype != torch.float32:

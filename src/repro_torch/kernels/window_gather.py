@@ -50,6 +50,8 @@ def window_gather(buf: torch.Tensor, patients: torch.Tensor,
     all on one card.  Returns ``[P, C, L]``.  The caller keeps
     ``patients`` inside ``[0, N)`` (the kernel does not bound-check a
     device index, which would cost a host sync)."""
+    if torch.is_grad_enabled() and buf.requires_grad:
+        raise _build.no_backward("window_gather")
     # device, dtype and contiguity, on every call (one expression); the
     # slow path names the fault
     card = buf.get_device()

@@ -1,5 +1,5 @@
 """Shared layer primitives: norms, linears, rotary embeddings, SwiGLU MLP
-(``repro/models/layers.py:15-98``).
+and the token loss (``repro/models/layers.py:15-114``).
 
 Parameters are plain nested dicts of tensors in the reference's layout,
 so a JAX params tree carries across as a change of array type
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -136,3 +136,18 @@ def unembed(p, x: torch.Tensor) -> torch.Tensor:
     if "head" in p:
         return x @ p["head"]
     return x @ p["table"].T
+
+
+# ---------------------------------------------------------------- loss
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Mean token cross-entropy over the tokens whose label is >= 0
+    (``repro/models/layers.py:102``); the denominator is clamped to at
+    least 1, so an all-masked batch gives 0.  ``vocab_size`` is unused,
+    as in the reference."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)

@@ -1,9 +1,10 @@
 """Runtime options, orthogonal to the architecture config
 (``repro/models/runtime.py``).
 
-The serving-path subset: ``remat``, ``scan_unroll``, ``moe_impl`` and
-``mesh`` belong to training, the roofline probes and sharding, none of
-which the port carries yet (ROADMAP §1 items 7 and 13).
+The serving and training subset: ``remat`` and ``scan_unroll`` (the
+reference's memory and compile levers of a jitted train step),
+``moe_impl`` and ``mesh`` (the sharded MoE) belong to ROADMAP §1 item
+14, which the port does not carry yet.
 """
 from __future__ import annotations
 

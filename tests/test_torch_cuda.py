@@ -33,7 +33,10 @@ of a tick over the plain versions, and an aborted tick leaving the
 state tensor's bytes.  Placement over 4 lanes of the card: flushes and
 ticks bitwise the unsharded service's with the same launches, the
 retire EWMAs from CUDA events, and a lane lost for good quarantined and
-re-placed, bitwise after.
+re-placed, bitwise after.  Training: every kernel wrapper refuses an
+input that requires grad while grad is on, and runs (against its plain
+version) with grad off; two ECG train steps on the card match the
+CPU's with TF32 switched on for the process, and leave it on.
 """
 import numpy as np
 import pytest
@@ -1053,3 +1056,117 @@ def test_cuda_lane_loss_quarantined_bitwise(cuda_device):
     assert {b.tdev for b in sw.facade.current._buckets} == {cuda_device}
     assert_bitwise(np.array(got), np.array(svc.predict_batch(refs[:8])),
                    "after failover")
+
+
+def _guarded_calls(dev, rg):
+    """Each kernel wrapper on small inputs on the card, with its plain
+    version: (kernel call, plain call, bitwise?).  ``rg`` marks the
+    float inputs that require grad."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f = lambda *s: torch.randn(*s, generator=gen, device=dev) \
+        .requires_grad_(rg)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    buf, pat, ends, val = f(2, 3, 8), i32([1, 0]), i32([5, 8]), i32([4, 3])
+    x3, w3 = f(2, 9, 4), f(3, 2, 4)
+    x4, w4 = f(2, 1, 9, 4), f(2, 3, 4, 4)
+    q, k, v = f(1, 5, 4, 32), f(1, 5, 2, 32), f(1, 5, 2, 32)
+    pos = torch.arange(5, dtype=torch.int32, device=dev)
+    qd = f(1, 4, 32)
+    xs, dt, A = f(1, 8, 2, 8), f(1, 8, 2).abs(), -f(2).abs()
+    Bs, Cs, Ds = f(1, 8, 1, 8), f(1, 8, 1, 8), f(2)
+    xb, wg, wu, wd = f(2, 3, 8), f(2, 8, 5), f(2, 8, 5), f(2, 5, 8)
+    return {
+        "window_gather": (lambda: kgather.window_gather(buf, pat, ends, val,
+                                                        4),
+                          lambda: ref.window_gather(buf, pat, ends, val, 4),
+                          True),
+        "conv1d_stripe": (lambda: kconv.conv1d_stripe(x3, w3, None, 1, 2),
+                          lambda: ref.conv1d_stripe(x3, w3, None, 1, 2),
+                          False),
+        "conv1d_stripe_stacked": (
+            lambda: kconv.conv1d_stripe_stacked(x4, w4, None, 2),
+            lambda: ref.conv1d_stripe_stacked(x4, w4, None, 2), False),
+        "flash_attention": (lambda: kflash.flash_attention(q, k, v, pos, pos),
+                            lambda: ref.attention(q, k, v, pos, pos), False),
+        "decode_attention": (
+            lambda: kdecode.decode_attention(qd, k, v, pos, 4),
+            lambda: ref.decode_attention(qd, k, v, pos, i32([4])), False),
+        "ssd": (lambda: kssd.ssd(xs, dt, A, Bs, Cs, Ds, 4)[0],
+                lambda: ref.ssd_chunked(xs, dt, A, Bs, Cs, Ds, 4)[0], False),
+        "moe_gmm": (lambda: kgmm.moe_gmm(xb, wg, wu, wd),
+                    lambda: ref.moe_gmm(xb, wg, wu, wd), False),
+    }
+
+
+_LAUNCHES = {"window_gather": kgather.launches,
+             "conv1d_stripe": kconv.launches,
+             "conv1d_stripe_stacked": kconv.launches_stacked,
+             "flash_attention": kflash.launches,
+             "decode_attention": kdecode.launches, "ssd": kssd.launches,
+             "moe_gmm": kgmm.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_LAUNCHES))
+def test_cuda_kernel_guard_grad_on_and_off(cuda_device, name):
+    """Grad on and an input that requires grad: the wrapper raises before
+    it launches.  Grad off (the same inputs) or no input that requires
+    grad: it launches and agrees with its plain version."""
+    counter = _LAUNCHES[name]
+    kernel, _, _ = _guarded_calls(cuda_device, True)[name]
+    before = counter.value
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernel()
+    assert counter.value == before
+    for rg in (True, False):
+        kernel, plain, bitwise = _guarded_calls(cuda_device, rg)[name]
+        with torch.no_grad():
+            got, want = kernel(), plain()
+        assert counter.value == before + 1 + (not rg)
+        (assert_bitwise if bitwise else assert_close)(got, want, name)
+    kernel, _, _ = _guarded_calls(cuda_device, False)[name]
+    kernel()                                  # grad on, nothing requires it
+    assert counter.value == before + 3
+
+
+@pytest.mark.cuda
+def test_cuda_ecg_train_step_matches_cpu_with_tf32_left_on(cuda_device):
+    """Two train steps of a reduced member on the card against the same
+    steps on the CPU (plain versions both), with cuDNN's and cuBLAS's
+    TF32 switched on for the process: each step turns them off and puts
+    them back, and launches no kernel; the trained member's predictions
+    (the CUDA conv, the head's matmul in fp32) match the CPU's."""
+    from repro_torch.configs.ecg_zoo import zoo_specs
+    from repro_torch.models.ecg_resnext import leaves, map_params
+    from repro_torch.training.data import make_icu_dataset
+    from repro_torch.training.train_loop import (ecg_predict_proba,
+                                                 train_ecg_model)
+
+    spec = zoo_specs(reduced=True, input_len=750)[11]       # w16_b4
+    d = make_icu_dataset(n_patients=4, clips_per_patient=4, seed=0,
+                         seconds=3)
+    x, y = d["ecg"][:, spec.lead, :], d["label"]
+    counters = list(_LAUNCHES.values())
+    before = [c.value for c in counters]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        pc, lc = train_ecg_model(spec, x, y, steps=2, batch=8, seed=3,
+                                 device=cuda_device)
+        assert [c.value for c in counters] == before
+        proba = ecg_predict_proba(pc, x, spec)
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert flags == (True, True)
+    assert kconv.launches.value == before[1] + 1 + 3 * spec.blocks
+    assert_close(proba, ecg_predict_proba(map_params(pc, lambda t: t.cpu()),
+                                          x, spec), "predictions")
+    pp, lp = train_ecg_model(spec, x, y, steps=2, batch=8, seed=3,
+                             device="cpu")
+    assert_close(np.array(lc), np.array(lp), "losses")
+    for a, b in zip(leaves(pc), leaves(pp)):
+        assert a.is_cuda and not a.requires_grad
+        assert_close(a, b)

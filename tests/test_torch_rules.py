@@ -2,13 +2,17 @@
 
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   anything of the JAX package (``repro``);
-* the kernel modules, the LM paths' modules (dense, MoE, SSM) and
-  ``chip_smoke.py`` hold no ``try``: nothing catches a kernel build or
-  launch to fall back to the plain version;
+* the kernel modules, the LM paths' modules (dense, MoE, SSM), the
+  training path's modules and ``chip_smoke.py`` hold no ``try``:
+  nothing catches a kernel build or launch to fall back to the plain
+  version;
 * an entry point built without ``device=`` runs on the card, so it
   raises when CUDA is absent;
 * a CPU tensor handed to a kernel wrapper raises instead of running the
-  plain version.
+  plain version;
+* a kernel wrapper handed an input that requires grad, with grad on,
+  raises before anything else (the kernels have no backward), and runs
+  its checks as before under ``torch.no_grad()``.
 """
 import ast
 import os
@@ -21,18 +25,23 @@ import torch
 from repro_torch.configs.ecg_zoo import zoo_specs
 from repro_torch.device import resolve_device
 from repro_torch.configs.registry import get_config
+from repro_torch.benchmarks import zoo_setup
 from repro_torch.kernels import conv1d_stripe as kconv
+from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import moe_gmm as kgmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd as kssd
 from repro_torch.kernels import window_gather as kgather
 from repro_torch.launch import serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer
 from repro_torch.models.ecg_resnext import init_ecg
 from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.serving import aggregator as ta
 from repro_torch.serving import pipeline as tp
+from repro_torch.training import train_loop
+from repro_torch.training.data import lm_batches
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -48,6 +57,12 @@ LM_PATH = [PORT / f for f in (
     "configs/phi35_moe_42b.py", "kernels/ops.py", "kernels/ref.py",
     "kernels/flash_attention.py", "kernels/ssd.py", "kernels/moe_gmm.py",
     "kernels/conv1d_stripe.py")]
+# the training path: the train loops, the optimizer, checkpoints, data,
+# the launcher, the zoo builder and its example
+TRAIN_PATH = [PORT / f for f in (
+    "training/__init__.py", "training/data.py", "training/optimizer.py",
+    "training/checkpoint.py", "training/train_loop.py", "launch/train.py",
+    "benchmarks/zoo_setup.py", "examples/train_ecg_zoo.py")]
 
 
 def _imports(path):
@@ -68,11 +83,12 @@ def test_port_imports_no_jax_and_no_reference_package(path):
 
 def test_lm_path_modules_are_checked():
     assert set(LM_PATH) <= set(PORT_FILES)
+    assert set(TRAIN_PATH) <= set(PORT_FILES)
 
 
 def test_no_try_around_kernels_or_in_chip_smoke():
     files = sorted((PORT / "kernels").glob("*.py")) + LM_PATH \
-        + [ROOT / "chip_smoke.py"]
+        + TRAIN_PATH + [ROOT / "chip_smoke.py"]
     for path in files:
         tree = ast.parse(path.read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), \
@@ -111,6 +127,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         transformer.init_lm(torch.Generator(), cfg, RuntimeOptions())
     with pytest.raises(RuntimeError, match="CUDA"):
         transformer.init_cache(cfg, RuntimeOptions(), 1, 8)
+    spec = zoo_specs(reduced=True, input_len=250)[0]
+    x, y = np.zeros((4, 250), np.float32), np.zeros(4, np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop.train_ecg_model(spec, x, y, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop.train_lm(cfg, RuntimeOptions(),
+                            lm_batches(cfg.vocab_size, 1, 8), steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "smollm-360m-reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zoo_setup.build_zoo(n_patients=4, clips=1, seconds=1, steps=1,
+                            widths=(8,), blocks=(2,), verbose=False)
     assert resolve_device("cpu") == torch.device("cpu")
     assert tp.EnsembleService([_member()], device="cpu").device.type == "cpu"
 
@@ -158,3 +186,41 @@ def test_cpu_service_with_cuda_impl_raises_not_falls_back():
     svc = tp.EnsembleService([_member()], impl="cuda", device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         svc.predict({"ecg": np.zeros((3, 250), np.float32)})
+
+
+def _wrapper_calls(rg):
+    """Each kernel wrapper called on small CPU inputs; ``rg`` marks the
+    float inputs that require grad."""
+    f = lambda *s: torch.zeros(*s).requires_grad_(rg)
+    i = torch.zeros(1, dtype=torch.int32)
+    pos = torch.arange(4, dtype=torch.int32)
+    return {
+        "window_gather": lambda: kgather.window_gather(f(1, 3, 8), i, i, i,
+                                                       4),
+        "conv1d_stripe": lambda: kconv.conv1d_stripe(f(1, 8, 4),
+                                                     f(3, 4, 4)),
+        "conv1d_stripe_stacked": lambda: kconv.conv1d_stripe_stacked(
+            f(2, 1, 8, 4), f(2, 3, 4, 4)),
+        "flash_attention": lambda: kflash.flash_attention(
+            f(1, 4, 2, 32), f(1, 4, 1, 32), f(1, 4, 1, 32), pos, pos),
+        "decode_attention": lambda: kdecode.decode_attention(
+            f(1, 2, 32), f(1, 4, 1, 32), f(1, 4, 1, 32), pos, 3),
+        "ssd": lambda: kssd.ssd(f(1, 4, 2, 8), f(1, 4, 2), f(2),
+                                f(1, 4, 1, 8), f(1, 4, 1, 8), f(2), 4),
+        "moe_gmm": lambda: kgmm.moe_gmm(f(2, 3, 4), f(2, 4, 5), f(2, 4, 5),
+                                        f(2, 5, 4)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_wrapper_calls(False)))
+def test_kernel_wrappers_refuse_inputs_that_require_grad(name):
+    """The guard runs first, so it needs no card: with grad on and an
+    input that requires grad, every wrapper raises the guard's error;
+    under ``torch.no_grad()`` the same call reaches the wrapper's own
+    checks (here: CPU tensors refused)."""
+    with pytest.raises(RuntimeError, match="no backward.*plain versions"):
+        _wrapper_calls(True)[name]()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        _wrapper_calls(True)[name]()
+    with pytest.raises(ValueError, match="CUDA"):
+        _wrapper_calls(False)[name]()
