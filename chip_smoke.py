@@ -106,7 +106,19 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    steps at B=8, S=128 through ``launch/train.py``'s argv, its loss
    falling; (d) the kernel guard: ``ecg_apply`` on params that require
    grad with ``impl="cuda"`` raises before any launch;
-9. a ``kernels`` JSON line (the seven ported kernels), and the last line
+9. the hybrid path: zamba2-7b at full width and depth (81 layers,
+   d_model 3584, ~6.6 B params; the shared attention block every 6
+   layers) at the same traffic as phase 4: exactly 13
+   ``flash_attention`` (32 heads of 112), 81 ``ssd`` and 243
+   ``conv1d_stripe`` launches in prefill and 416 ``decode_attention``
+   over the 32 steps, phase 4's checks;
+10. the enc-dec path: seamless-m4t-medium at full width and depth (12
+   encoder + 12 decoder layers, d_model 1024, untied padded vocab
+   256,208): B = 4, 1024 audio frames of 1024, a 64-token decoder
+   prompt, 32 new tokens; exactly 36 ``flash_attention`` (encoder not
+   causal, decoder self causal, cross not causal over the frames) and
+   768 ``decode_attention`` launches, phase 4's checks;
+11. a ``kernels`` JSON line (the seven ported kernels), and the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``ssd`` (y and hT) and ``moe_gmm`` against their
@@ -120,11 +132,13 @@ device time (a CUDA graph) and host time beside the event-timed figure
 (``decode_attention`` and ``ssd`` with their plan and scratch bytes).
 ``--only=gather,flash`` runs phase 2 for the named kernels alone
 (``--only=flush``: phase 3 alone, its flush times and host stages;
-``--only=train``: phase 8 alone) and prints no result line.
+``--only=train``: phase 8 alone; ``--only=hybrid,encdec``: phases 9 and
+10 alone) and prints no result line.
 ``--profile`` adds one traced flush at P=8 and at P=64 after phase 3 and
-one traced prefill and decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe
-and deepseek-v2-lite (and one absorbed step) (``torch.profiler``):
-device time by kernel and the card's idle share.
+one traced prefill and decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe,
+deepseek-v2-lite (and one absorbed step), zamba2-7b and
+seamless-m4t-medium (``torch.profiler``): device time by kernel and the
+card's idle share.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Details (per-shape timings, the nvcc log) go to
@@ -146,6 +160,9 @@ TOL = 1e-4                  # rtol = atol for float compute (testing.py)
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 FP32_FLOP_S = 67e12         # H100 SXM fp32 outside the tensor cores
 TF32_FLOP_S = 495e12        # H100 SXM TF32 on the tensor cores, dense
+# the LM phases' traffic: batch 4, a 2048-token prompt, 32 new tokens
+SERVED = ["--batch", "4", "--prompt-len", "2048", "--new-tokens", "32",
+          "--seed", str(SEED)]
 
 
 def _time_ms(torch, fn, reps: int = 5) -> float:
@@ -412,27 +429,39 @@ def phase_gather(torch, np, record):
 
 def _flash_cases(np):
     """The LM path's prefill attention calls at full width, as
-    ``(label, B, Hq, Hkv, D, Dv, window, qpos, kpos)``: qwen3-4b's prefill
-    (B=4, 2048 tokens, causal), the same under a 512-token window,
-    smollm-360m's at the launcher's defaults (D=64, g=3), and the
-    materialized MLA prefill of deepseek-v2-lite-16b (16 heads, q and k
-    of width 192, v of width 128)."""
-    ar = np.arange
+    ``(label, B, Hq, Hkv, D, Dv, window, causal, qpos, kpos)``:
+    qwen3-4b's prefill (B=4, 2048 tokens, causal), the same under a
+    512-token window, smollm-360m's at the launcher's defaults (D=64,
+    g=3), the materialized MLA prefill of deepseek-v2-lite-16b (16 heads,
+    q and k of width 192, v of width 128), zamba2-7b's shared block (32
+    heads of 112, g = 1), and seamless-m4t-medium's three calls (16
+    heads of 64): the encoder's (1024 frames, not causal), the decoder's
+    self-attention (64 tokens, causal) and its cross-attention (64
+    queries over 1024 frames, not causal, all-zero positions)."""
+    ar, z = np.arange, np.zeros
     return [
-        ("qwen3-4b prefill", 4, 32, 8, 128, 128, 0, ar(2048), ar(2048)),
-        ("qwen3-4b prefill window=512", 4, 32, 8, 128, 128, 512, ar(2048),
+        ("qwen3-4b prefill", 4, 32, 8, 128, 128, 0, True, ar(2048),
          ar(2048)),
-        ("smollm-360m prefill", 4, 15, 5, 64, 64, 0, ar(64), ar(64)),
-        ("deepseek MLA prefill", 4, 16, 16, 192, 128, 0, ar(2048),
+        ("qwen3-4b prefill window=512", 4, 32, 8, 128, 128, 512, True,
+         ar(2048), ar(2048)),
+        ("smollm-360m prefill", 4, 15, 5, 64, 64, 0, True, ar(64), ar(64)),
+        ("deepseek MLA prefill", 4, 16, 16, 192, 128, 0, True, ar(2048),
          ar(2048)),
+        ("zamba2-7b prefill", 4, 32, 32, 112, 112, 0, True, ar(2048),
+         ar(2048)),
+        ("seamless encoder", 4, 16, 16, 64, 64, 0, False, ar(1024),
+         ar(1024)),
+        ("seamless decoder self", 4, 16, 16, 64, 64, 0, True, ar(64),
+         ar(64)),
+        ("seamless cross", 4, 16, 16, 64, 64, 0, False, z(64), z(1024)),
     ]
 
 
 def _decode_cases(np):
     """The LM path's decode steps at full width, as ``(label, B, Hq, Hkv,
-    D, Dv, window, qpos, kpos, absorbed)``: qwen3-4b mid-generation (the
-    2081-slot ring, 2065 slots filled, ``kpos = -1`` tail), its
-    512-token window over the ring ``fit_kv_cache`` builds for a
+    D, Dv, window, qpos, kpos, absorbed, causal)``: qwen3-4b
+    mid-generation (the 2081-slot ring, 2065 slots filled, ``kpos = -1``
+    tail), its 512-token window over the ring ``fit_kv_cache`` builds for a
     2080-token prompt (rolled by 2080 % 512, then the step's own slot
     written), smollm-360m at the launcher's defaults; deepseek-v2-lite's
     materialized MLA step (16 KV heads, 192 / 128) and its absorbed step
@@ -440,7 +469,10 @@ def _decode_cases(np):
     columns of k's rows, scale 1/sqrt(192)) on the same ring; a ring
     filled to 300 of 2081 slots (most pieces empty); and a query that
     sees no key at all (zeros by design; the plain version gives the
-    mean of v)."""
+    mean of v); zamba2-7b's shared block on the same ring (32 heads of
+    112, g = 1); seamless-m4t-medium's decoder self-attention (16 heads
+    of 64, g = 1, the 97-slot ring of a 64-token prompt) and its
+    cross-attention (not causal, 1024 frames, all-zero positions)."""
     ar = np.arange
     ring = np.where(ar(2081) < 2065, ar(2081), -1)
     win = np.roll(ar(2080 - 512, 2080), 2080 % 512)
@@ -450,18 +482,26 @@ def _decode_cases(np):
     late = ar(2081) + 5000
     q1 = np.array
     return [
-        ("qwen3-4b decode", 4, 32, 8, 128, 128, 0, q1([2064]), ring, False),
+        ("qwen3-4b decode", 4, 32, 8, 128, 128, 0, q1([2064]), ring, False,
+         True),
         ("qwen3-4b decode window=512 ring", 4, 32, 8, 128, 128, 512,
-         q1([2080]), win, False),
-        ("smollm-360m decode", 4, 15, 5, 64, 64, 0, q1([80]), small, False),
+         q1([2080]), win, False, True),
+        ("smollm-360m decode", 4, 15, 5, 64, 64, 0, q1([80]), small, False,
+         True),
         ("deepseek MLA decode materialized", 4, 16, 16, 192, 128, 0,
-         q1([2064]), ring, False),
+         q1([2064]), ring, False, True),
         ("deepseek MLA decode absorbed", 4, 16, 1, 576, 512, 0, q1([2064]),
-         ring, True),
+         ring, True, True),
         ("deepseek MLA decode, ring 300 of 2081", 4, 16, 16, 192, 128, 0,
-         q1([299]), part, False),
+         q1([299]), part, False, True),
         ("deepseek MLA decode absorbed, no visible key", 4, 16, 1, 576, 512,
-         0, q1([2064]), late, True),
+         0, q1([2064]), late, True, True),
+        ("zamba2-7b decode", 4, 32, 32, 112, 112, 0, q1([2064]), ring,
+         False, True),
+        ("seamless decoder self", 4, 16, 16, 64, 64, 0, q1([80]), small,
+         False, True),
+        ("seamless cross", 4, 16, 16, 64, 64, 0, q1([0]), np.zeros(1024),
+         False, False),
     ]
 
 
@@ -469,7 +509,10 @@ def _attn_bound(B, Hq, Hkv, D, Dv, vis, S, T, v_in_k=False):
     """(bytes s, operations s, visible pairs) of one attention call:
     q and o read and written once, and each K/V row that some query sees
     (a latent row once when v is a prefix of k's rows); 2 (D + Dv) FLOPs
-    per visible (q, k) pair and head."""
+    per visible (q, k) pair and head.  ``vis`` may be ``[1, T]`` (the
+    mask of a call that is not causal and has no window broadcasts over
+    the queries): it is counted over all S queries."""
+    vis = vis.expand(S, T)
     pairs = int(vis.sum())
     live = int(vis.any(0).sum())
     row = D if v_in_k else D + Dv
@@ -480,8 +523,9 @@ def _attn_bound(B, Hq, Hkv, D, Dv, vis, S, T, v_in_k=False):
 
 def phase_flash(torch, np, F, record):
     """``flash_attention`` against the plain version (TF32 off) at the
-    LM path's prefill shapes, bitwise repeatable, with its time (and one
-    call's device and host time), the plain version's, one
+    LM paths' prefill shapes (``_flash_cases``), bitwise repeatable,
+    with its time (and one call's device and host time), the plain
+    version's, one
     ``F.scaled_dot_product_attention`` call's (same boolean mask, fp32,
     ``enable_gqa``; v of its own width) and the bound: the larger of the
     bytes and the operations as three TF32 products on the tensor cores
@@ -493,16 +537,17 @@ def phase_flash(torch, np, F, record):
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
-    for label, B, Hq, Hkv, D, Dv, window, qp_np, kp_np in _flash_cases(np):
+    for (label, B, Hq, Hkv, D, Dv, window, causal, qp_np,
+         kp_np) in _flash_cases(np):
         S, T = len(qp_np), len(kp_np)
         q = torch.randn((B, S, Hq, D), device=dev, generator=gen)
         k = torch.randn((B, T, Hkv, D), device=dev, generator=gen)
         v = torch.randn((B, T, Hkv, Dv), device=dev, generator=gen)
         qp = torch.from_numpy(qp_np.astype(np.int32)).to(dev)
         kp = torch.from_numpy(kp_np.astype(np.int32)).to(dev)
-        run = lambda: kflash.flash_attention(q, k, v, qp, kp, causal=True,
-                                             window=window)
-        plain = lambda: ref.attention(q, k, v, qp, kp, causal=True,
+        run = lambda: kflash.flash_attention(q, k, v, qp, kp,
+                                             causal=causal, window=window)
+        plain = lambda: ref.attention(q, k, v, qp, kp, causal=causal,
                                       window=window)
         y, r = run(), plain()
         y2 = run()
@@ -514,7 +559,7 @@ def phase_flash(torch, np, F, record):
         if not torch.equal(y, y2):
             raise AssertionError(f"flash_attention {label}: two calls "
                                  "differ (not bitwise repeatable)")
-        vis = ref.visible(qp, kp, True, window)
+        vis = ref.visible(qp, kp, causal, window)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=vis, enable_gqa=True)
@@ -522,7 +567,8 @@ def phase_flash(torch, np, F, record):
         bs, os_, pairs = _attn_bound(B, Hq, Hkv, D, Dv, vis, S, T)
         tc = 3 * os_ * FP32_FLOP_S / TF32_FLOP_S      # 3xTF32
         rec = {"B": B, "S": S, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
-               "Dv": Dv, "window": window, "visible_pairs": pairs,
+               "Dv": Dv, "window": window, "causal": causal,
+               "visible_pairs": pairs,
                "ms": _time_ms(torch, run), "device_ms": _device_ms(
                    torch, run, 5 if S * T >= 2 ** 20 else 20),
                "host_ms": _host_ms(torch, run),
@@ -567,8 +613,8 @@ def phase_decode(torch, np, F, record):
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
-    for (label, B, Hq, Hkv, D, Dv, window, qp_np, kp_np,
-         absorbed) in _decode_cases(np):
+    for (label, B, Hq, Hkv, D, Dv, window, qp_np, kp_np, absorbed,
+         causal) in _decode_cases(np):
         T = len(kp_np)
         q = torch.randn((B, Hq, D), device=dev, generator=gen)
         if absorbed:                         # k and v: views of the rows
@@ -582,12 +628,14 @@ def phase_decode(torch, np, F, record):
         qp = torch.from_numpy(qp_np.astype(np.int32)).to(dev)
         kp = torch.from_numpy(kp_np.astype(np.int32)).to(dev)
         run = lambda: kdecode.decode_attention(q, k, v, kp, qp,
-                                               window=window, scale=scale)
-        plain = lambda: ref.decode_attention(q, k, v, kp, qp, window=window,
-                                             scale=scale)
+                                               window=window, scale=scale,
+                                               causal=causal)
+        plain = lambda: ref.attention(q[:, None], k, v, qp, kp,
+                                      causal=causal, window=window,
+                                      scale=scale)[:, 0]
         y, r = run(), plain()
         torch.cuda.synchronize()
-        vis = ref.visible(qp, kp, True, window)
+        vis = ref.visible(qp, kp, causal, window)
         seen = bool(vis.any())
         want = r if seen else torch.zeros_like(r)
         err = float((y - want).abs().max())
@@ -598,10 +646,11 @@ def phase_decode(torch, np, F, record):
                                  + ("" if seen else " (want zeros)"))
         if not torch.equal(y, run()):
             raise AssertionError(f"decode_attention {label}: two runs differ")
-        plan = kdecode.plan_of(q, k, v, kp, qp, window=window)
+        plan = kdecode.plan_of(q, k, v, kp, qp, window=window,
+                               causal=causal)
         ts, n_split = plan.ts, plan.n_split
         rec = {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D, "Dv": Dv,
-               "window": window, "absorbed": absorbed,
+               "window": window, "absorbed": absorbed, "causal": causal,
                "visible_keys": int(vis.sum()), "max_abs_err": err,
                "path": plan.path,
                "plan": {"ts": ts, "n_split": n_split, "slots": plan.slots,
@@ -624,7 +673,7 @@ def phase_decode(torch, np, F, record):
                         "library_max_abs_err": lib_err})
             if plan.path == "tensor_cores" and seen:
                 # the CUDA-core path on the same inputs, its own plan
-                key = kdecode._key(q, k, v, kp, qp, window, True, 0)
+                key = kdecode._key(q, k, v, kp, qp, window, causal, 0)
                 alt = kdecode._plan(key, q, k, v, kp, qp, "cuda_cores")
                 run_alt = lambda: kdecode._launch(alt, q, k, v, kp, qp,
                                                   scale)
@@ -667,10 +716,11 @@ def phase_decode(torch, np, F, record):
 
 
 def phase_mamba_conv(torch, np, F, record):
-    """The 3-D ``conv1d_stripe`` at the mamba2-2.7b short-conv shapes
-    (depthwise, K = 4, CAUSAL: x at 5120 channels, B and C at 128;
-    B = 4, L = 2048) against the plain version, bitwise repeatable, with
-    its time (and its direct path's), the plain version's and one cuDNN
+    """The 3-D ``conv1d_stripe`` at the mamba2-2.7b and zamba2-7b
+    short-conv shapes (depthwise, K = 4, CAUSAL: x at 5120 and 7168
+    channels, B and C at 128 and 64; B = 4, L = 2048) against the plain
+    version, bitwise repeatable, with its time (and its direct path's),
+    the plain version's and one cuDNN
     depthwise ``F.conv1d``'s (CUDA events over 20 calls), the device and
     host time of one call of the kernel and of cuDNN (as ``phase_conv``)
     and the bound."""
@@ -681,7 +731,7 @@ def phase_mamba_conv(torch, np, F, record):
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
-    for ch in (5120, 128):
+    for ch in (5120, 128, 7168, 64):
         B, L, K = 4, 2048, 4
         x = torch.randn((B, L, ch), device=dev, generator=gen)
         w = torch.randn((K, 1, ch), device=dev, generator=gen) / math.sqrt(K)
@@ -756,20 +806,22 @@ def phase_ssd(torch, record):
     bitwise repeatable)
     at the mamba2-2.7b prefill shape (B = 4, S = 2048, H = 80, P = 64,
     G = 1, N = 128, chunk 128), at a ragged S = 2000, with a random h0,
-    and at G = 2; inputs at unit scale (x, h0 ~ N(0, 1); B ~ N(0, 1),
-    C ~ N(0, 1/N) so C B^T is O(1); dt = softplus(N(0, 1)); A = -U(1,
-    16), Mamba-2's range)."""
+    at G = 2, and at zamba2-7b's (H = 112, N = 64); inputs at unit scale
+    (x, h0 ~ N(0, 1); B ~ N(0, 1), C ~ N(0, 1/N) so C B^T is O(1); dt =
+    softplus(N(0, 1)); A = -U(1, 16), Mamba-2's range)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as kssd
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
-    for label, S, G, with_h0 in (("served", 2048, 1, False),
-                                 ("ragged S=2000", 2000, 1, False),
-                                 ("h0", 2048, 1, True),
-                                 ("G=2", 2048, 2, False)):
-        B, H, P, N, chunk = 4, 80, 64, 128, 128
+    for label, S, G, with_h0, H, N in (
+            ("served", 2048, 1, False, 80, 128),
+            ("ragged S=2000", 2000, 1, False, 80, 128),
+            ("h0", 2048, 1, True, 80, 128),
+            ("G=2", 2048, 2, False, 80, 128),
+            ("zamba2-7b", 2048, 1, False, 112, 64)):
+        B, P, chunk = 4, 64, 128
         x = torch.randn((B, S, H, P), device=dev, generator=gen)
         dt = torch.nn.functional.softplus(
             torch.randn((B, S, H), device=dev, generator=gen))
@@ -944,9 +996,10 @@ def phase_llm_profile(torch, r, max_len, absorbed_ms=None):
     decode's ms/token, one traced absorbed MLA step), and the card's
     idle share of the untraced prefill and mean decode step."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import transformer
+    from repro_torch.models.api import get_model
 
     cfg, rt = r["cfg"], r["rt"]
+    model = get_model(cfg)
     out = {}
     runs = [("prefill", rt, 1e3 * r["prefill_s"]),
             ("decode", rt, r["decode_ms_per_token"])]
@@ -958,12 +1011,12 @@ def phase_llm_profile(torch, r, max_len, absorbed_ms=None):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             if what == "prefill":
-                _, cache = transformer.prefill(r["params"], r["tokens"], cfg,
-                                               rt_, max_len=max_len)
+                _, cache = model.prefill(r["params"], r["tokens"], cfg, rt_,
+                                         prefix_embeds=r["prefix_embeds"],
+                                         max_len=max_len)
             else:                                   # the first steps again
-                transformer.decode_step(r["params"], cache,
-                                        r["generated"][:, step - 1], cfg,
-                                        rt_)
+                model.decode_step(r["params"], cache,
+                                  r["generated"][:, step - 1], cfg, rt_)
             torch.cuda.synchronize()
         by = _device_ms_by_kernel(torch, prof)
         cls = {"flash_attention": 0.0, "decode_attention": 0.0, "ssd": 0.0,
@@ -1031,12 +1084,14 @@ def _serve_counted(torch, argv, counters, expected, cfg=None):
 
 def _plain_prefill(torch, r, counters, max_len, rt, moe_inputs=None):
     """The prefill again through the plain versions (no kernel may
-    launch)."""
-    from repro_torch.models import transformer
+    launch); ``moe_inputs`` as ``transformer.prefill``'s."""
+    from repro_torch.models.api import get_model
 
+    kw = {} if moe_inputs is None else {"moe_inputs": moe_inputs}
     before = [c.value for c in counters]
-    plain, _ = transformer.prefill(r["params"], r["tokens"], r["cfg"], rt,
-                                   max_len=max_len, moe_inputs=moe_inputs)
+    plain, _ = get_model(r["cfg"]).prefill(
+        r["params"], r["tokens"], r["cfg"], rt,
+        prefix_embeds=r["prefix_embeds"], max_len=max_len, **kw)
     if [c.value for c in counters] != before:
         raise AssertionError("the plain prefill launched a kernel")
     return plain
@@ -1080,44 +1135,118 @@ def _llm_record(r, args, launches, card, **extra):
     return rec
 
 
+def _ssd_floor(torch, r, max_len, logits, plain):
+    """The prefill logits of a deep mamba stack, where the plain
+    version's own fp32 rounding in the ``ssd`` moves them by more than
+    1e-4 (zamba2-7b, 81 layers): each ``ssd`` call of a prefill held
+    kernel against plain on the same inputs (1e-4), the kernel path's
+    logits bitwise those of the served prefill, and held (1e-4) against
+    the plain versions' with the ``ssd`` calls on the kernel (so every
+    other kernel end to end); and, reported, the distance of the plain
+    and of the kernel logits from a plain prefill with the ``ssd`` in
+    float64 (the rounding floor)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as kssd
+    from repro_torch.models.api import get_model
+    from repro_torch.models.runtime import RuntimeOptions
+
+    cfg = r["cfg"]
+    model = get_model(cfg)
+
+    def prefill(rt):
+        return model.prefill(r["params"], r["tokens"], cfg, rt,
+                             prefix_embeds=r["prefix_embeds"],
+                             max_len=max_len)[0]
+
+    served_ssd, plain_ssd = ops.ssd, ref.ssd_chunked
+    errs = []
+
+    def held(x, dt, A, B_, C, D, chunk, h0=None, *, impl=None):
+        y, h = kssd.ssd(x, dt, A, B_, C, D, chunk, h0)
+        yp, hp = plain_ssd(x, dt, A, B_, C, D, chunk, h0)
+        errs.append(max(float((y - yp).abs().max()),
+                        float((h - hp).abs().max())))
+        if not (torch.allclose(y, yp, rtol=TOL, atol=TOL)
+                and torch.allclose(h, hp, rtol=TOL, atol=TOL)):
+            raise AssertionError(f"{cfg.name}: ssd call {len(errs)}, kernel "
+                                 f"vs plain on the same inputs: max abs "
+                                 f"err {errs[-1]}")
+        return y, h
+
+    ops.ssd = held
+    again = prefill(r["rt"])
+    ops.ssd = lambda *a, impl=None: kssd.ssd(
+        *(t.contiguous() if torch.is_tensor(t) else t for t in a))
+    plain_kssd = prefill(RuntimeOptions(impl="torch"))
+    ops.ssd = served_ssd
+    ref.ssd_chunked = lambda *a: tuple(t.float() for t in plain_ssd(
+        *(t.double() if torch.is_tensor(t) else t for t in a)))
+    exact = prefill(RuntimeOptions(impl="torch"))
+    ref.ssd_chunked = plain_ssd
+    err = lambda a, b: float((a - b).abs().max())
+    out = {"ssd_calls_held": len(errs), "ssd_in_situ_max_abs_err": max(errs),
+           "vs_plain_with_kernel_ssd": err(logits, plain_kssd),
+           "plain_vs_float64_ssd": err(plain, exact),
+           "kernel_vs_float64_ssd": err(logits, exact)}
+    print(f"    {cfg.name}: {len(errs)} ssd calls, kernel vs plain on the "
+          f"same inputs, max abs err {out['ssd_in_situ_max_abs_err']:.3g}; "
+          f"logits vs the plain versions with the ssd on the kernel "
+          f"{out['vs_plain_with_kernel_ssd']:.3g}; from a plain prefill "
+          f"with the ssd in float64: plain {out['plain_vs_float64_ssd']:.3g},"
+          f" kernels {out['kernel_vs_float64_ssd']:.3g}", flush=True)
+    if len(errs) != cfg.num_layers or not torch.equal(again, logits):
+        raise AssertionError(f"{cfg.name}: {len(errs)} ssd calls held, or "
+                             "the held prefill's logits not bitwise the "
+                             "served prefill's")
+    if not torch.allclose(logits, plain_kssd, rtol=TOL, atol=TOL):
+        raise AssertionError(f"{cfg.name}: prefill logits vs the plain "
+                             "versions with the ssd on the kernel: max abs "
+                             f"err {out['vs_plain_with_kernel_ssd']}")
+    return out
+
+
 def phase_llm(torch, np, record, card, argv, counters, expected,
-              profile=False):
-    """A dense or pure-SSM LM through its launcher
+              profile=False, ssd_floor=False):
+    """A dense, pure-SSM, hybrid or enc-dec LM through its launcher
     (``repro_torch.launch.serve``): prefill, then a greedy decode loop,
     with every launch counter at 0 just before and read just after
     (exactly ``expected``); then the prefill logits against the plain
     versions (1e-4) and the first two decode steps against the
     teacher-forced forward on the same tokens (2e-3), and one more decode
-    step under ``set_sync_debug_mode("error")``."""
-    from repro_torch.models import transformer
+    step under ``set_sync_debug_mode("error")``.  With ``ssd_floor`` the
+    logits against the plain versions are reported and ``_ssd_floor``
+    holds the ``ssd`` calls and the other kernels apart."""
+    from repro_torch.models.api import get_model
     from repro_torch.models.runtime import RuntimeOptions
 
     args, r, launches = _serve_counted(torch, argv, counters, expected)
     cfg, S = r["cfg"], args.prompt_len
+    model = get_model(cfg)
     logits, gen = r["prefill_logits"], r["generated"]
     max_len = S + args.new_tokens + 1
     plain = _plain_prefill(torch, r, counters, max_len,
                            RuntimeOptions(impl="torch"))
     plain_err = float((logits - plain).abs().max())
-    if not torch.allclose(logits, plain, rtol=TOL, atol=TOL):
+    floor = _ssd_floor(torch, r, max_len, logits, plain) if ssd_floor \
+        else {}
+    if not (ssd_floor or torch.allclose(logits, plain, rtol=TOL, atol=TOL)):
         raise AssertionError(f"{cfg.name}: prefill logits, kernel vs "
                              f"plain: max abs err {plain_err}")
     del plain
-    full, _ = transformer.forward(
+    full, _ = model.forward(
         r["params"], torch.cat([r["tokens"], gen[:, :2]], dim=1), cfg,
-        r["rt"])
+        r["rt"], prefix_embeds=r["prefix_embeds"])
     tf_err = _check_teacher_forced(torch, cfg.name,
                                    [logits, *r["step_logits"][:2]], full, S)
     del full
     # one more step of the served cache: the decode path never stalls
     # the host on the card (a sync would serialise launch and compute)
     torch.cuda.set_sync_debug_mode("error")
-    transformer.decode_step(r["params"], r["cache"], gen[:, -1], cfg,
-                            r["rt"])
+    model.decode_step(r["params"], r["cache"], gen[:, -1], cfg, r["rt"])
     torch.cuda.set_sync_debug_mode(0)
     rec = _llm_record(r, args, launches, card,
                       prefill_vs_plain_max_abs_err=plain_err,
-                      decode_vs_forward_max_abs_err=tf_err)
+                      decode_vs_forward_max_abs_err=tf_err, **floor)
     print(f"    prefill logits vs plain max abs err {plain_err:.3g}, cached "
           f"vs teacher-forced {tf_err:.3g}", flush=True)
     if profile:
@@ -1543,6 +1672,74 @@ def phase_mla(torch, record, card, argv, counters, expected, profile=False,
                                            absorbed_ms=abs_ms)
     record[f"llm_{args.arch}"] = rec
     del r
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _lm_counters():
+    """The seven kernels' launch counters, in the ``kernels`` line's
+    order."""
+    from repro_torch.kernels import conv1d_stripe as kconv
+    from repro_torch.kernels import decode_attention as kdecode
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import moe_gmm as kgmm
+    from repro_torch.kernels import ssd as kssd
+    from repro_torch.kernels import window_gather as kgather
+    return (kgather.launches, kconv.launches_stacked, kconv.launches,
+            kflash.launches, kdecode.launches, kssd.launches, kgmm.launches)
+
+
+def phase_hybrid(torch, np, record, card, profile=False):
+    """Phase 9: zamba2-7b at full width and depth (81 layers, d_model
+    3584, the shared block every 6: 13 invocations and 3 tail layers)
+    through its launcher at the served traffic, ``phase_llm``'s checks,
+    exactly 13 ``flash_attention`` (32 heads of 112), 81 ``ssd`` and 243
+    ``conv1d_stripe`` launches in prefill and 13 ``decode_attention`` a
+    decode step (the mamba decode runs no kernel, as in the
+    reference).  Its prefill logits, kernel against plain, are reported
+    and held apart (``_ssd_floor``): over 81 mamba layers the plain
+    version's own fp32 rounding in the ``ssd`` moves them by ~2.5e-4
+    from an ``ssd`` in float64 (PERF.md §6, PR 22), so the ``ssd`` is
+    held call by call on the same inputs and the other kernels end to
+    end."""
+    def expected(cfg, a):
+        ns, L = cfg.num_layers // cfg.shared_attn_every, cfg.num_layers
+        return {"flash_attention": ns, "decode_attention": ns * a.new_tokens,
+                "ssd": L, "conv1d_stripe": 3 * L}
+
+    rec = phase_llm(torch, np, record, card, ["--arch", "zamba2-7b"]
+                    + SERVED, _lm_counters(), expected, profile=profile,
+                    ssd_floor=True)
+    n = rec["launches"]
+    if (rec["layers"], rec["d_model"], n["flash_attention"], n["ssd"],
+            n["conv1d_stripe"], n["decode_attention"]) != (
+                81, 3584, 13, 81, 243, 416):
+        raise AssertionError(f"zamba2-7b served at {rec}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_encdec(torch, np, record, card, profile=False):
+    """Phase 10: seamless-m4t-medium at full width and depth (12 encoder
+    and 12 decoder layers, d_model 1024, vocab padded to 256,208,
+    untied) through its launcher: B = 4, 1024 audio frames of 1024 (the
+    launcher's seeded stub embeddings), a 64-token decoder prompt, 32 new
+    tokens; ``phase_llm``'s checks, exactly 36 ``flash_attention`` in
+    prefill (12 encoder, not causal; 12 decoder self, causal; 12 cross,
+    not causal over the 1024 frames) and 24 ``decode_attention`` a step
+    (12 self, 12 cross)."""
+    def expected(cfg, a):
+        return {"flash_attention": cfg.enc_layers + 2 * cfg.dec_layers,
+                "decode_attention": 2 * cfg.dec_layers * a.new_tokens}
+
+    rec = phase_llm(torch, np, record, card,
+                    ["--arch", "seamless-m4t-medium", "--batch", "4",
+                     "--prompt-len", "64", "--new-tokens", "32", "--seed",
+                     str(SEED)], _lm_counters(), expected, profile=profile)
+    n = rec["launches"]
+    if (rec["layers"], rec["d_model"], n["flash_attention"],
+            n["decode_attention"]) != (24, 1024, 36, 768):
+        raise AssertionError(f"seamless-m4t-medium served at {rec}")
     torch.cuda.empty_cache()
     return rec
 
@@ -3046,12 +3243,14 @@ def phase_small_reference(torch, np):
           f"{err:.3g}", flush=True)
 
 
-def phase_only(torch, np, F, specs, record, card, names) -> int:
+def phase_only(torch, np, F, specs, record, card, names,
+               profile=False) -> int:
     """``--only=gather,flash,...``: phase 2 for the named kernels alone
     (gather, conv, mamba_conv, flash, decode, ssd, gmm), or ``flush``:
     phase 3 alone (the full zoo's main path and its P=8/P=64 flush
-    times and host stages), or ``train``: phase 8 alone, its records in
-    ``chiprun_out/chip_smoke_only.json``; no result line."""
+    times and host stages), ``train``: phase 8 alone, ``hybrid`` or
+    ``encdec``: phase 9 or 10 alone (traced with ``--profile``), its
+    records in ``chiprun_out/chip_smoke_only.json``; no result line."""
     phases = {"flush": lambda: phase_main(torch, np, specs, record, card),
               "gather": lambda: phase_gather(torch, np, record),
               "conv": lambda: phase_conv(torch, np, F, specs, record),
@@ -3060,7 +3259,11 @@ def phase_only(torch, np, F, specs, record, card, names) -> int:
               "decode": lambda: phase_decode(torch, np, F, record),
               "ssd": lambda: phase_ssd(torch, record),
               "gmm": lambda: phase_gmm(torch, record),
-              "train": lambda: phase_training(torch, np, record, card)}
+              "train": lambda: phase_training(torch, np, record, card),
+              "hybrid": lambda: phase_hybrid(torch, np, record, card,
+                                             profile),
+              "encdec": lambda: phase_encdec(torch, np, record, card,
+                                             profile)}
     unknown = [n for n in names if n not in phases]
     if unknown:
         raise ValueError(f"--only: unknown phases {unknown}; known: "
@@ -3122,7 +3325,7 @@ def main() -> int:
     specs = zoo_specs(reduced=False)
     print("phase 2: kernels against their plain versions", flush=True)
     if only:
-        return phase_only(torch, np, F, specs, record, card, only)
+        return phase_only(torch, np, F, specs, record, card, only, profile)
     gather = phase_gather(torch, np, record)
     conv = phase_conv(torch, np, F, specs, record)
     mconv = phase_mamba_conv(torch, np, F, record)
@@ -3152,18 +3355,8 @@ def main() -> int:
 
     print("phase 4: dense-LM serving path (qwen3-4b, full width and "
           "depth; smollm-360m)", flush=True)
-    from repro_torch.kernels import conv1d_stripe as kconv
-    from repro_torch.kernels import decode_attention as kdecode
-    from repro_torch.kernels import flash_attention as kflash
-    from repro_torch.kernels import moe_gmm as kgmm
-    from repro_torch.kernels import ssd as kssd
-    from repro_torch.kernels import window_gather as kgather
     from repro_torch.configs.registry import get_config
-    counters = (kgather.launches, kconv.launches_stacked, kconv.launches,
-                kflash.launches, kdecode.launches, kssd.launches,
-                kgmm.launches)
-    served = ["--batch", "4", "--prompt-len", "2048", "--new-tokens", "32",
-              "--seed", str(SEED)]
+    counters = _lm_counters()
 
     def attention_launches(cfg, a, moe_layers=0):
         """``flash_attention`` once a layer in prefill, ``decode_attention``
@@ -3175,7 +3368,7 @@ def main() -> int:
             want["moe_gmm"] = moe_layers * (1 + n)
         return want
 
-    qwen = phase_llm(torch, np, record, card, ["--arch", "qwen3-4b"] + served,
+    qwen = phase_llm(torch, np, record, card, ["--arch", "qwen3-4b"] + SERVED,
                      counters, attention_launches, profile=profile)
     if (qwen["layers"], qwen["d_model"], qwen["launches"]["flash_attention"],
             qwen["launches"]["decode_attention"]) != (36, 2560, 36, 1152):
@@ -3193,7 +3386,7 @@ def main() -> int:
     print("phase 5: pure-SSM serving path (mamba2-2.7b, full width and "
           "depth)", flush=True)
     mamba = phase_llm(
-        torch, np, record, card, ["--arch", "mamba2-2.7b"] + served,
+        torch, np, record, card, ["--arch", "mamba2-2.7b"] + SERVED,
         counters, lambda cfg, a: {"ssd": cfg.num_layers,
                                   "conv1d_stripe": 3 * cfg.num_layers},
         profile=profile)
@@ -3210,7 +3403,7 @@ def main() -> int:
     phi_cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
                                   num_layers=10)
     phi = phase_moe(torch, record, card,
-                    ["--arch", "phi3.5-moe-42b-a6.6b"] + served, counters,
+                    ["--arch", "phi3.5-moe-42b-a6.6b"] + SERVED, counters,
                     lambda cfg, a: attention_launches(cfg, a,
                                                       cfg.num_layers),
                     phi_cfg, profile=profile)
@@ -3232,7 +3425,7 @@ def main() -> int:
           "and depth; materialized, then absorbed)", flush=True)
     ds_cfg = get_config("deepseek-v2-lite-16b")
     ds = phase_mla(torch, record, card,
-                   ["--arch", "deepseek-v2-lite-16b"] + served, counters,
+                   ["--arch", "deepseek-v2-lite-16b"] + SERVED, counters,
                    lambda cfg, a: attention_launches(
                        cfg, a, cfg.num_layers - cfg.moe.first_dense_layers),
                    profile=profile)
@@ -3254,6 +3447,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phase 8: training (full ECG zoo; smollm-360m)", flush=True)
     training = phase_training(torch, np, record, card)
+
+    torch.cuda.empty_cache()
+    print("phase 9: hybrid serving path (zamba2-7b, full width and depth)",
+          flush=True)
+    zamba = phase_hybrid(torch, np, record, card, profile=profile)
+    zf, zs, zd = (flash["zamba2-7b prefill"], ssd["zamba2-7b"],
+                  decode["zamba2-7b decode"])
+    print(f"  zamba2-7b kernel shares (launches x kernel ms at the phase-2 "
+          f"shapes over the served time): prefill flash_attention "
+          f"{13 * zf['ms'] / (1e3 * zamba['prefill_s']):.3f}, ssd "
+          f"{81 * zs['ms'] / (1e3 * zamba['prefill_s']):.3f}; decode step "
+          f"decode_attention "
+          f"{13 * zd['ms'] / zamba['decode_ms_per_token']:.3f}", flush=True)
+
+    print("phase 10: enc-dec serving path (seamless-m4t-medium, full width "
+          "and depth)", flush=True)
+    seamless = phase_encdec(torch, np, record, card, profile=profile)
 
     def conv_row(name, key, replaces):
         t = conv[key]
@@ -3287,6 +3497,7 @@ def main() -> int:
     conv_m1["launches_by_path"] = {
         "ecg per-member oracle query": launches["conv1d_stripe"],
         "mamba2-2.7b": mamba["launches"]["conv1d_stripe"],
+        "zamba2-7b": zamba["launches"]["conv1d_stripe"],
         "ecg zoo build (phase 8: val predictions and cost measurements)":
             training["zoo"]["launches"]["conv1d_stripe"],
         "ecg zoo restore (phase 8: val predictions)":
@@ -3330,7 +3541,9 @@ def main() -> int:
              "qwen3-4b": qwen["launches"]["flash_attention"],
              "smollm-360m": smollm["launches"]["flash_attention"],
              "phi3.5-moe (10 layers)": phi["launches"]["flash_attention"],
-             "deepseek-v2-lite-16b": ds["launches"]["flash_attention"]},
+             "deepseek-v2-lite-16b": ds["launches"]["flash_attention"],
+             "zamba2-7b": zamba["launches"]["flash_attention"],
+             "seamless-m4t-medium": seamless["launches"]["flash_attention"]},
          "max_abs_err": max(v["max_abs_err"] for v in flash.values()),
          "ms": fp["ms"], "plain_ms": fp["plain_ms"],
          "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
@@ -3343,7 +3556,12 @@ def main() -> int:
              "device_ms", "host_ms", "tf32x3_ops_ms", "fp32_ops_ms")}
             for key, label in (("mla_prefill", "deepseek MLA prefill"),
                                ("window_512", "qwen3-4b prefill window=512"),
-                               ("smollm-360m", "smollm-360m prefill"))}},
+                               ("smollm-360m", "smollm-360m prefill"),
+                               ("zamba2-7b", "zamba2-7b prefill"),
+                               ("seamless_encoder", "seamless encoder"),
+                               ("seamless_decoder_self",
+                                "seamless decoder self"),
+                               ("seamless_cross", "seamless cross"))}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:69",
@@ -3355,7 +3573,10 @@ def main() -> int:
                  ds["absorbed_launches"]["decode_attention"],
              "qwen3-4b": qwen["launches"]["decode_attention"],
              "smollm-360m": smollm["launches"]["decode_attention"],
-             "phi3.5-moe (10 layers)": phi["launches"]["decode_attention"]},
+             "phi3.5-moe (10 layers)": phi["launches"]["decode_attention"],
+             "zamba2-7b": zamba["launches"]["decode_attention"],
+             "seamless-m4t-medium":
+                 seamless["launches"]["decode_attention"]},
          "max_abs_err": max(v["max_abs_err"] for v in decode.values()),
          "ms": dm["ms"], "plain_ms": dm["plain_ms"],
          "bound_ms": dm["bound_ms"], "bound_by": dm["bound_by"],
@@ -3369,7 +3590,10 @@ def main() -> int:
                   if k in decode[label]}
             for key, label in (("absorbed", "deepseek MLA decode absorbed"),
                                ("qwen3-4b", "qwen3-4b decode"),
-                               ("smollm-360m", "smollm-360m decode"))}},
+                               ("smollm-360m", "smollm-360m decode"),
+                               ("zamba2-7b", "zamba2-7b decode"),
+                               ("seamless_self", "seamless decoder self"),
+                               ("seamless_cross", "seamless cross"))}},
         {"name": "ssd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:74",
@@ -3381,7 +3605,12 @@ def main() -> int:
          "host_ms": sv["host_ms"], "tf32x3_ops_ms": sv["tf32x3_ops_ms"],
          "scratch_bytes": sv["scratch_bytes"],
          "shape": "mamba2-2.7b prefill: B=4 S=2048 H=80 P=64 G=1 N=128 "
-                  "chunk 128"},
+                  "chunk 128",
+         "launches_by_path": {"mamba2-2.7b": mamba["launches"]["ssd"],
+                              "zamba2-7b": zamba["launches"]["ssd"]},
+         "zamba2-7b": {k: ssd["zamba2-7b"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+             "host_ms", "tf32x3_ops_ms", "scratch_bytes")}},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:48",

@@ -8,8 +8,8 @@
 // skipped with @pl.when.  Blocks on Hopper run in parallel and in no
 // order, so here the k axis is a loop inside the block and m, l, acc live
 // in registers.  What it computes is repro_torch/kernels/ref.py
-// attention, with v of width Dv (equal to D, or 128 at D = 192 for the
-// materialized MLA prefill):
+// attention, with v of width Dv (equal to D: 16, 32, 64, 112 for
+// zamba2, 128; or 128 at D = 192 for the materialized MLA prefill):
 //
 //   s[q, t] = scale * q[b, q, h, :] . k[b, t, h / g, :]
 //   visible = kpos[t] >= 0  &&  (!causal || kpos[t] <= qpos[q])
@@ -52,8 +52,11 @@
 //   decode_attention.cu does).
 // * Precision: the tensor cores truncate as they add, so Q K^T sums into
 //   a fresh fragment for 32 of D and each such stage is added into the
-//   fp32 scores on the CUDA cores (moe_gmm.cu, ssd.cu); P V sums one key
-//   tile into a fresh fragment, added as o = o * alpha + part.
+//   fp32 scores on the CUDA cores (moe_gmm.cu, ssd.cu); where 32 does not
+//   divide D (zamba2's D = 112 = 3 x 32 + 16) the last stage takes the
+//   16 left, in a fresh fragment of its own (qk_stage).  P V sums one key
+//   tile into a fresh fragment, added as o = o * alpha + part, in passes
+//   of VCH n8 tiles of Dv: 8, or 7 at Dv = 112 (two passes of 14).
 // * Operands are split on the fly (split_tf32: two integer ops a value)
 //   from fp32 tiles in shared memory, rows padded to 4 mod 32 floats so
 //   that every fragment load is free of bank conflicts; the Q and K
@@ -63,7 +66,8 @@
 //   staged once; K and V go through a two-slot cp.async ring, the next
 //   live tile in flight while this one is multiplied, with one barrier a
 //   tile.  BK = 64 keys a tile for D <= 128 (203 KB of shared memory at
-//   D = 128), 32 at D = 192 (185 KB): one block of 8 warps an SM.
+//   D = 128, and at D = 112, whose rows pad to the same 132 floats), 32
+//   at D = 192 (185 KB): one block of 8 warps an SM.
 //   Unrolling the stages of Q K^T was slower (2.68 against 2.55 ms).
 // * Which tiles are live is known before the loop: the block first reads
 //   the kpos of every tile (all at once, a pass of up to 1024 tiles) and
@@ -121,6 +125,11 @@ struct Params {
 // rows of a tile: 4 mod 32 floats (conflict-free fragment loads)
 constexpr int pad_ld(int width) { return width + (36 - width % 32) % 32; }
 
+// the largest divisor of n that is at most m
+constexpr int largest_divisor(int n, int m) {
+  return n % m == 0 ? m : largest_divisor(n, m - 1);
+}
+
 template <int D, int DV>
 struct Cfg {
   static constexpr int BQ = 128;                  // query rows a block
@@ -132,13 +141,17 @@ struct Cfg {
   static constexpr int NT8 = BK / 8;              // score n8 tiles a warp
   static constexpr int KS = D / 8;                // k8 steps of Q K^T
   static constexpr int STG = KS < 4 ? KS : 4;     // k8 steps a stage (32)
+  static constexpr int N_STG = KS / STG;          // whole stages
+  static constexpr int TAIL = KS % STG;           // k8 steps of a short
+                                                  // last stage (2 at 112)
   static constexpr int VT8 = DV / 8;              // output n8 tiles
-  static constexpr int VCH = VT8 < 8 ? VT8 : 8;   // n8 tiles a P V pass
+  static constexpr int VCH = largest_divisor(VT8, 8);   // n8 tiles a P V
+                                                        // pass (7 at 112)
   static constexpr int K_FL = BK * LDQ, V_FL = BK * LDV;
   static constexpr int SLOT_FL = K_FL + V_FL + BK;   // K, V, kpos
   static constexpr int BYTES = 4 * (BQ * LDQ + 2 * SLOT_FL);
-  static_assert(D % 8 == 0 && DV % 8 == 0 && KS % STG == 0, "dims");
-  static_assert(VT8 % VCH == 0, "dims");
+  static_assert(D % 8 == 0 && DV % 8 == 0, "dims");
+  static_assert(BYTES <= 232448, "a block's shared memory");
 };
 
 // rows [r0, r0 + R) of a [rows, H, W] tensor (row stride `row_stride`
@@ -195,6 +208,52 @@ __device__ __forceinline__ void split4(const unsigned (&x)[4],
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     split_tf32(__uint_as_float(x[i]), big[i], small[i]);
+}
+
+// one stage of S = Q K^T: NKS k8 steps of D from column k0, 3xTF32
+// (small * big + big * small + big * big), summed in a fresh fragment
+// and added into the fp32 scores s
+template <int NKS, int NT8, int LDQ>
+__device__ __forceinline__ void qk_stage(float (&s)[NT8][4],
+                                         const float* qrow,
+                                         const float* krow, int k0) {
+  float part[NT8][4];
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) part[nt][r] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < NKS; ++ks) {
+    const int k = k0 + 8 * ks;
+    unsigned x[4], ab[4], as[4];
+    ldsm4(x, qrow + k);              // (g, t) (g+8, t) (g, t+4) (g+8, t+4)
+    split4(x, ab, as);
+    unsigned bb[NT8][2], bs[NT8][2];
+#pragma unroll
+    for (int nt = 0; nt < NT8; nt += 2) {   // K[key][d], two n8 tiles
+      unsigned y[4], yb[4], ys[4];
+      ldsm4(y, krow + nt * 8 * LDQ + k);    // (t, g) (t+4, g) of each
+      split4(y, yb, ys);
+      bb[nt][0] = yb[0];
+      bb[nt][1] = yb[1];
+      bb[nt + 1][0] = yb[2];
+      bb[nt + 1][1] = yb[3];
+      bs[nt][0] = ys[0];
+      bs[nt][1] = ys[1];
+      bs[nt + 1][0] = ys[2];
+      bs[nt + 1][1] = ys[3];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) mma(part[nt], as, bb[nt]);
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) mma(part[nt], ab, bs[nt]);
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) mma(part[nt], ab, bb[nt]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[nt][r] += part[nt][r];
 }
 
 // the first live tile after j (n when none)
@@ -364,7 +423,8 @@ __global__ void __launch_bounds__(Cfg<D, DV>::NT, 1)
         full = full && static_cast<long long>(whi) - kmin < p.window;
 
       // S = Q K^T: this warp's 16 rows x BK keys, 3xTF32, each stage of
-      // 32 of D summed in a fresh fragment and added in fp32
+      // 32 of D (and a last stage of D % 32, 16 at D = 112) summed in a
+      // fresh fragment and added in fp32
       float s[NT8][4];
 #pragma unroll
       for (int nt = 0; nt < NT8; ++nt)
@@ -377,45 +437,10 @@ __global__ void __launch_bounds__(Cfg<D, DV>::NT, 1)
                           + 4 * (lm >> 1);
       const float* krow = Ks + (lr + 8 * (lm >> 1)) * LDQ + 4 * (lm & 1);
 #pragma unroll 1
-      for (int k0 = 0; k0 < D; k0 += 8 * C::STG) {
-        float part[NT8][4];
-#pragma unroll
-        for (int nt = 0; nt < NT8; ++nt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) part[nt][r] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < C::STG; ++ks) {
-          const int k = k0 + 8 * ks;
-          unsigned x[4], ab[4], as[4];
-          ldsm4(x, qrow + k);              // (g, t) (g+8, t) (g, t+4) (g+8, t+4)
-          split4(x, ab, as);
-          unsigned bb[NT8][2], bs[NT8][2];
-#pragma unroll
-          for (int nt = 0; nt < NT8; nt += 2) {   // K[key][d], two n8 tiles
-            unsigned y[4], yb[4], ys[4];
-            ldsm4(y, krow + nt * 8 * LDQ + k);    // (t, g) (t+4, g) of each
-            split4(y, yb, ys);
-            bb[nt][0] = yb[0];
-            bb[nt][1] = yb[1];
-            bb[nt + 1][0] = yb[2];
-            bb[nt + 1][1] = yb[3];
-            bs[nt][0] = ys[0];
-            bs[nt][1] = ys[1];
-            bs[nt + 1][0] = ys[2];
-            bs[nt + 1][1] = ys[3];
-          }
-#pragma unroll
-          for (int nt = 0; nt < NT8; ++nt) mma(part[nt], as, bb[nt]);
-#pragma unroll
-          for (int nt = 0; nt < NT8; ++nt) mma(part[nt], ab, bs[nt]);
-#pragma unroll
-          for (int nt = 0; nt < NT8; ++nt) mma(part[nt], ab, bb[nt]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT8; ++nt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) s[nt][r] += part[nt][r];
-      }
+      for (int k0 = 0; k0 < 8 * C::STG * C::N_STG; k0 += 8 * C::STG)
+        qk_stage<C::STG, NT8, LDQ>(s, qrow, krow, k0);
+      if constexpr (C::TAIL > 0)
+        qk_stage<C::TAIL, NT8, LDQ>(s, qrow, krow, 8 * C::STG * C::N_STG);
 
       // scale and mask; lane holds rows g (r = 0, 1) and g + 8 (r = 2,
       // 3), keys nt * 8 + 2t (r = 0, 2) and + 1 (r = 1, 3)
@@ -567,6 +592,7 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
   if (D == 16 && Dv == 16) e = launch<16, 16>(p, st);
   else if (D == 32 && Dv == 32) e = launch<32, 32>(p, st);
   else if (D == 64 && Dv == 64) e = launch<64, 64>(p, st);
+  else if (D == 112 && Dv == 112) e = launch<112, 112>(p, st);  // zamba2
   else if (D == 128 && Dv == 128) e = launch<128, 128>(p, st);
   else if (D == 192 && Dv == 128) e = launch<192, 128>(p, st);  // MLA
   else e = cudaErrorInvalidValue;

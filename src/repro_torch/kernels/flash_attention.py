@@ -1,9 +1,11 @@
 """CUDA ``flash_attention``: the prefill attention of the LM path
 (``S > 1``; source: ``csrc/flash_attention.cu``; replaces
 ``repro/kernels/flash_attention.py:98``).  Computes ``ref.attention``
-within the port's tolerance, for ``Dv == D`` and for the materialized
-MLA prefill's ``(D, Dv) = (192, 128)``, as 3xTF32 products on the
-tensor cores; bitwise repeatable at a fixed shape.  A single decode
+within the port's tolerance, for ``Dv == D`` (zamba2's 112 among them)
+and for the materialized MLA prefill's ``(D, Dv) = (192, 128)``, as
+3xTF32 products on the tensor cores; bitwise repeatable at a fixed
+shape.  Causal or not, with or without a window, and with ``T != S``
+(seamless's cross-attention: all-zero positions, not causal).  A single decode
 token goes to ``kernels/decode_attention.py``."""
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from repro_torch.kernels import _build
 launches = _build.LaunchCount("flash_attention")
 
 # the kernel's (D, Dv) instantiations
-HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (112, 112), (128, 128),
+             (192, 128))
 BLOCK_Q = 128         # query rows a block (Cfg::BQ in the source)
 
 

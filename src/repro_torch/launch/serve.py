@@ -1,9 +1,11 @@
-"""Serving launcher: batched prefill + greedy decode loop for a dense,
-VLM, MoE or pure-SSM ``--arch`` (``repro/launch/serve.py:18``).
+"""Serving launcher: batched prefill + greedy decode loop for any
+``--arch`` of the registry (``repro/launch/serve.py:18``).
 
     python -m repro_torch.launch.serve --arch qwen3-4b        # on the card
     python -m repro_torch.launch.serve --arch mamba2-2.7b --prompt-len 2048
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+    python -m repro_torch.launch.serve --arch zamba2-7b --prompt-len 2048
+    python -m repro_torch.launch.serve --arch seamless-m4t-medium
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-lite-16b-reduced --device cpu      # plain, CPU
 
@@ -13,6 +15,8 @@ CUDA kernels on the card (``flash_attention`` in prefill,
 ``decode_attention`` at every decode step, ``moe_gmm``, ``ssd``,
 ``conv1d_stripe``), the plain versions on the CPU.  MLA models are
 served in their materialized form, the reference launcher's default.
+An enc-dec model gets ``[B, n_prefix_tokens, frontend_dim]`` random
+audio frame embeddings for its encoder; the prompt is its decoder's.
 Prints the first generated tokens and one JSON line with the
 reference's keys (``prefill_s``, ``decode_tok_per_s``,
 ``decode_ms_per_token``); the card is synchronised before every clock

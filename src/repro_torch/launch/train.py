@@ -1,5 +1,5 @@
-"""Training launcher (``repro/launch/train.py:19``) for a dense, VLM, MoE
-or pure-SSM ``--arch``.
+"""Training launcher (``repro/launch/train.py:19``) for any ``--arch`` of
+the registry.
 
     python -m repro_torch.launch.train --arch smollm-360m --steps 25 \\
         --batch 8 --seq 128                                   # on the card

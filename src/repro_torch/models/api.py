@@ -7,10 +7,11 @@
     logits, cache = model.decode_step(params, cache, token, cfg, rt)
     cache = model.init_cache(cfg, rt, batch, seq_len, device)
 
-The port assembles the dense, VLM, MoE and pure-SSM families, with GQA
-or MLA attention (``deepseek-v2-lite-16b`` is a MoE model with MLA);
-hybrid and enc-dec are a later slice (ROADMAP §1 item 13) and raise
-``NotImplementedError``.
+Every family of the reference has its assembly: dense, VLM, MoE and
+pure SSM in ``transformer.py`` (GQA or MLA attention; ``deepseek-v2-lite-16b``
+is a MoE model with MLA), the Mamba2 backbone with a shared attention
+block in ``hybrid.py`` (``zamba2-7b``) and the audio encoder-decoder in
+``encdec.py`` (``seamless-m4t-medium``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,17 +39,28 @@ _TRANSFORMER = ModelApi(
     init_cache=transformer.init_cache,
 )
 
-_LATER = {
-    "hybrid": "13.5 (hybrid: models/hybrid.py)",
-    "encdec": "13.5 (enc-dec: models/encdec.py)",
-}
+_HYBRID = ModelApi(
+    init=hybrid.init_hybrid,
+    forward=hybrid.forward,
+    prefill=hybrid.prefill,
+    decode_step=hybrid.decode_step,
+    init_cache=hybrid.init_cache,
+)
+
+_ENCDEC = ModelApi(
+    init=encdec.init_encdec,
+    forward=encdec.forward,
+    prefill=encdec.prefill,
+    decode_step=encdec.decode_step,
+    init_cache=encdec.init_cache,
+)
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
     if cfg.family in ("dense", "vlm", "moe", "ssm"):
         return _TRANSFORMER
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; it comes with "
-            f"ROADMAP §1 item {_LATER[cfg.family]}")
+    if cfg.family == "hybrid":
+        return _HYBRID
+    if cfg.family == "encdec":
+        return _ENCDEC
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,5 +1,6 @@
-"""Attention variants with ring-buffer decode caches: GQA/MQA and MLA
-(DeepSeek-V2) (``repro/models/attention.py``, all but cross-attention).
+"""Attention variants with ring-buffer decode caches: GQA/MQA, MLA
+(DeepSeek-V2) and encoder/decoder cross-attention
+(``repro/models/attention.py``).
 
 Cache convention (per layer; the transformer stacks these over L):
   gqa:  {"k": [B, M, kvH, hd], "v": [B, M, kvH, hd]}
@@ -14,8 +15,11 @@ consumed by the step that advances it.  An MLA cache's ``ckv`` and
 buffer (``mla_cache``), so the absorbed decode reads a latent row whole
 (``latent_rows``) with no copy.  The mask (the reference's
 ``_mask_bias``, a copy of its oracle's) has one home in the port,
-``kernels/ref.py``.  Cross-attention comes with the enc-dec slice
-(ROADMAP §1 item 13).
+``kernels/ref.py``.  Cross-attention keeps no cache: as in the
+reference, its K and V are projected from the encoder output at every
+call (every decode step), and it runs ``ops.attention`` non-causal with
+all-zero positions (``flash_attention`` for S > 1, ``decode_attention``
+for S = 1 on the card).
 """
 from __future__ import annotations
 
@@ -231,3 +235,34 @@ def mla_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
                             window=window, impl=impl, chunk=chunk)
     out = linear(p["wo"], out.reshape(B, S, H * m.v_head_dim))
     return out, new_cache
+
+
+# ============================================================ cross-attn
+def init_cross(gen: torch.Generator, cfg: ArchConfig, dtype, device,
+               kv_mult: int = 1, lead=()):
+    d, hd = cfg.d_model, cfg.head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads * kv_mult
+    return {
+        "wq": init_linear(gen, d, nq * hd, dtype, device, lead=lead),
+        "wk": init_linear(gen, d, nkv * hd, dtype, device, lead=lead),
+        "wv": init_linear(gen, d, nkv * hd, dtype, device, lead=lead),
+        "wo": init_linear(gen, nq * hd, d, dtype, device, lead=lead),
+    }
+
+
+def cross_apply(p, x: torch.Tensor, enc: torch.Tensor, cfg: ArchConfig, *,
+                kv_mult: int = 1, impl: Optional[str] = None
+                ) -> torch.Tensor:
+    """Decoder cross-attention over the encoder output ``enc`` ``[B, T,
+    d]`` (no mask, no rope): x ``[B, S, d]`` -> ``[B, S, d]``."""
+    B, S, _ = x.shape
+    T = enc.shape[1]
+    hd = cfg.head_dim
+    q = linear(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    k = linear(p["wk"], enc).reshape(B, T, cfg.n_kv_heads * kv_mult, hd)
+    v = linear(p["wv"], enc).reshape(B, T, cfg.n_kv_heads * kv_mult, hd)
+    qpos = torch.zeros((S,), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((T,), dtype=torch.int32, device=x.device)
+    out = ops.attention(q, k, v, qpos, kpos, causal=False, window=0,
+                        impl=impl)
+    return linear(p["wo"], out.reshape(B, S, cfg.n_heads * hd))

@@ -1,12 +1,16 @@
 """Weights carried across from the JAX package.
 
 The port keeps the reference's params layout, so conversion is a change
-of array type.  ``params_from_numpy`` serves both trees the port has:
+of array type.  ``params_from_numpy`` serves every tree the port has:
 the ECG ResNeXt's (dicts and lists, conv weights ``[K, Cin // groups,
-Cout]``) and the LM's (nested dicts with a list of segments whose leaves
+Cout]``), the LM's (nested dicts with a list of segments whose leaves
 are stacked ``[L, ...]`` over the segment's layers: attention, SwiGLU,
 MoE ``[L, E, d, f]`` experts and router, and the mamba mixer, whose
-``A_log``, ``D`` and ``dt_bias`` are float32 in every dtype).  Its input is a
+``A_log``, ``D`` and ``dt_bias`` are float32 in every dtype), the
+hybrid's (``init_hybrid``: mamba blocks stacked ``[ns, k, ...]`` and
+``[tail, ...]``, one unstacked shared block) and the enc-dec's
+(``init_encdec``: ``enc`` and ``dec`` stacked over their layers, the
+decoder's cross-attention weights among them).  Its input is a
 JAX params tree turned to numpy (``jax.tree.map(np.asarray, params)``),
 or, for the ECG zoo, a committed ``results/zoo_cache/*.npz`` whose flat
 keys look like ``blocks/0/expand/w``.

@@ -206,6 +206,15 @@ def _tile_live(kp: torch.Tensor, lo: int, hi: int, causal: bool,
     return live
 
 
+def flash_stages(D: int) -> List[Tuple[int, int]]:
+    """The CUDA ``flash_attention``'s stages of Q K^T over D, as ``(first
+    column, width)``: 32 columns each (4 k8 steps, ``Cfg::STG``), or all
+    of D below 32, and a short last stage of what is left where 32 does
+    not divide D (``Cfg::TAIL``; zamba2's D = 112 is 32, 32, 32, 16)."""
+    stage = min(D, 32)
+    return [(d0, min(stage, D - d0)) for d0 in range(0, D, stage)]
+
+
 def flash_attention_tiles(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, qpos: torch.Tensor,
                           kpos: torch.Tensor, *, causal: bool = True,
@@ -216,8 +225,10 @@ def flash_attention_tiles(q: torch.Tensor, k: torch.Tensor,
     16; key tiles of 64 keys (32 at D > 128) visited in order, a tile
     skipped unless it is live for the block's and for the warp's query
     positions (``_tile_live``), K/V rows past T read as zeros with ``kpos
-    = -1``; in each tile S = Q K^T summed by stages of 32 of D, each
-    stage a product of its own added in float32, then multiplied by
+    = -1``; in each tile S = Q K^T summed by the kernel's stages of D
+    (``flash_stages``: 32 each, the last one short where 32 does not
+    divide D), each stage a product of its own added in float32, then
+    multiplied by
     ``scale * log2 e`` and masked to -1e30;
     the online softmax in base 2; P V one product a tile, added as ``o =
     o * alpha + part``.  ``passes`` takes the products by ``matmul_tf32``
@@ -228,7 +239,7 @@ def flash_attention_tiles(q: torch.Tensor, k: torch.Tensor,
     B, S, Hq, D = q.shape
     T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     g = Hq // Hkv
-    block_q, warp_rows, stage = 128, 16, 32
+    block_q, warp_rows = 128, 16
     bk = 32 if D > 128 else 64
     c = (D ** -0.5 if scale is None else scale) * math.log2(math.e)
     n_tiles = -(-T // bk)
@@ -258,9 +269,9 @@ def flash_attention_tiles(q: torch.Tensor, k: torch.Tensor,
                                        window)):
                     continue
                 kt = kh[:, :, None, keys]                     # [B,Hkv,1,bk,D]
-                sc = sum(mm(qs[..., d0:d0 + stage],
-                            kt[..., d0:d0 + stage].transpose(-1, -2))
-                         for d0 in range(0, D, stage))
+                sc = sum(mm(qs[..., d0:d0 + w],
+                            kt[..., d0:d0 + w].transpose(-1, -2))
+                         for d0, w in flash_stages(D))
                 sc = torch.where(vis[rows, keys], sc * c,
                                  torch.full_like(sc, ref.NEG_INF))
                 m_new = torch.maximum(m, sc.amax(-1))
@@ -345,8 +356,9 @@ def decode_pv_groups(Dv: int, path: str) -> int:
 
 
 # (label, B, Hkv, g, T, D, Dv, v_in_k, path, pieces, (slots, blocks an
-# SM)): the four served decode steps (B = 4; a 2081-slot ring, smollm's
-# 97), as the kernel's layout (the C plan) gives them on 132 SMs
+# SM)): the served decode steps (B = 4; a 2081-slot ring, smollm's 97,
+# seamless's cross step over 1024 frames), as the kernel's layout (the
+# C plan) gives them on 132 SMs
 SERVED_DECODE_PLANS = [
     ("deepseek absorbed", 4, 1, 16, 2081, 576, 512, True, "tensor_cores",
      33, (2, 1)),
@@ -354,6 +366,10 @@ SERVED_DECODE_PLANS = [
      "cuda_cores", 4, (2, 2)),
     ("qwen3-4b", 4, 8, 4, 2081, 128, 128, False, "cuda_cores", 8, (3, 2)),
     ("smollm-360m", 4, 5, 3, 97, 64, 64, False, "cuda_cores", 1, (4, 2)),
+    ("zamba2-7b", 4, 32, 1, 2081, 112, 112, False, "cuda_cores", 2,
+     (3, 2)),
+    ("seamless cross", 4, 16, 1, 1024, 64, 64, False, "cuda_cores", 4,
+     (6, 2)),
 ]
 
 

@@ -29,7 +29,7 @@ from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops, ref
 from repro_torch.testing import (assert_close, decode_attention_pieces,
-                                 flash_attention_tiles)
+                                 flash_attention_tiles, flash_stages)
 
 torch.set_num_threads(1)
 
@@ -205,28 +205,34 @@ def test_decode_merge_order_model_gives_zeros_without_a_visible_key():
                                 block_k=16, interpret=True))
 
 
-# (B, S, T, Hq, Hkv, D, Dv, causal, window): the CUDA flash_attention's
-# order of work (blocks of 128 query rows, warps of 16, key tiles of 64 or
-# 32 at D = 192, tile skips, 3xTF32 products in stages of 32 of D) at
-# D = 128 and (192, 128), S and T off the tiles, a window, g = 1 and 4
+# (B, S, T, Hq, Hkv, D, Dv, causal, window[, "zero positions"]): the CUDA
+# flash_attention's order of work (blocks of 128 query rows, warps of 16,
+# key tiles of 64 or 32 at D = 192, tile skips, 3xTF32 products in stages
+# of 32 of D, the last one 16 at D = 112) at D = 128, (192, 128) and
+# zamba2's (112, 112), S and T off the tiles, a window, g = 1 and 4, and
+# seamless's cross-attention (not causal, all-zero positions, T != S)
 TILE_CASES = [
     (1, 150, 150, 4, 1, 128, 128, True, 0),       # g = 4, two q blocks
     (2, 70, 90, 2, 2, 192, 128, True, 0),         # MLA widths, S < T
     (1, 140, 140, 4, 4, 64, 64, True, 40),        # window, g = 1
     (1, 33, 70, 8, 2, 32, 32, False, 0),          # not causal
     (1, 200, 260, 2, 1, 16, 16, True, 24),        # window cuts k8 steps
+    (1, 150, 150, 2, 2, 112, 112, True, 0),       # zamba2: D = 112, g = 1
+    (2, 40, 100, 2, 2, 64, 64, False, 0, "zero positions"),   # cross
 ]
 
 
 @pytest.mark.parametrize("case", TILE_CASES, ids=lambda c: "-".join(map(
     str, c)))
 def test_flash_tile_model_matches_jax_and_pallas(case):
-    B, S, T, Hq, Hkv, D, Dv, causal, window = case
+    B, S, T, Hq, Hkv, D, Dv, causal, window = case[:9]
     q, k, _ = _qkv(B, S, T, Hq, Hkv, D)
     v = np.random.default_rng(1).standard_normal((B, T, Hkv, Dv)).astype(
         np.float32)
     qpos = np.arange(T - S, T, dtype=np.int32)
     kpos = np.arange(T, dtype=np.int32)
+    if case[9:] == ("zero positions",):          # cross_apply's call
+        qpos, kpos = np.zeros_like(qpos), np.zeros_like(kpos)
     got = flash_attention_tiles(*_t(q, k, v, qpos, kpos), causal=causal,
                                 window=window)
     assert tuple(got.shape) == (B, S, Hq, Dv)
@@ -236,6 +242,20 @@ def test_flash_tile_model_matches_jax_and_pallas(case):
         assert_close(got, pl_flash(*_j(q, k, v, qpos, kpos), causal=causal,
                                    window=window, block_q=64, block_k=64,
                                    interpret=True))
+
+
+def test_flash_stages_follow_the_kernel():
+    """``Cfg::STG`` k8 steps a stage (32 of D, or all of a smaller D) and
+    a short last stage of ``Cfg::TAIL`` k8 steps where 32 does not divide
+    D: zamba2's 112 is 32, 32, 32, 16; every (D, Dv) the wrapper takes
+    is covered without overlap."""
+    assert flash_stages(112) == [(0, 32), (32, 32), (64, 32), (96, 16)]
+    assert flash_stages(16) == [(0, 16)]
+    assert flash_stages(192) == [(d, 32) for d in range(0, 192, 32)]
+    for D, _ in kflash.HEAD_DIMS:
+        cols = [c for d0, w in flash_stages(D) for c in range(d0, d0 + w)]
+        assert cols == list(range(D)) and all(
+            w % 8 == 0 for _, w in flash_stages(D))
 
 
 def test_flash_tile_model_skips_what_no_row_of_a_warp_sees():

@@ -12,15 +12,19 @@ plain versions to against the JAX package, and the mamba short conv
 float4 paths, a wrap inside a float4, ``L = cap`` and ``L > cap``; the
 ``flash_attention`` cases cover causal and windowed prefill, ragged
 ``S``/``T``, every (D, Dv) instantiation with the materialized MLA
-prefill (D = 192, Dv = 128), g = 3, several query blocks and two passes
-of key-tile liveness, each also bitwise repeatable; the
+prefill (D = 192, Dv = 128) and zamba2's (112, 112), g = 3, several
+query blocks, two passes of key-tile liveness and seamless's
+cross-attention (not causal, all-zero positions, T != S), each also
+bitwise repeatable; the
 ``decode_attention`` cases empty cache
 slots, a partly filled ring, the rolled ring of a windowed decode, ``g``
-in {1, 3, 4, 16, 48}, the materialized MLA step (192 / 128) and the
-absorbed one (576 / 512, v a strided view of k's rows); the ``ssd``
-cases ragged S, an initial state, G in {1, 2} and the served tile
-(chunk 128, P = 64, N = 128); the ``moe_gmm`` cases C and f off the
-tiles, at most 16 rows an expert (the decode tile) and more.  Each path
+in {1, 3, 4, 16, 48}, the materialized MLA step (192 / 128), the
+absorbed one (576 / 512, v a strided view of k's rows), zamba2's step
+(g = 1, D = 112) and seamless's cross step; the ``ssd``
+cases ragged S, an initial state, G in {1, 2} and the served tiles
+(chunk 128, P = 64, N = 128 and zamba2's N = 64); the ``moe_gmm`` cases
+C and f off the tiles, at most 16 rows an expert (the decode tile) and
+more.  Each path
 of the redesigned kernels has its own cases, each also repeat-equal: the
 conv's depthwise path (stride 1 and 2, SAME and CAUSAL, B = 1 and 4, L
 up to 7500) and tiled path (the ECG zoo's 1x1, stem and grouped shapes
@@ -54,6 +58,7 @@ from repro_torch.kernels import ssd as kssd
 from repro_torch.configs.registry import get_config
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer
+from repro_torch.models.api import get_model
 from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.kernels import window_gather as kgather
 from repro_torch.testing import (SERVED_DECODE_PLANS, assert_bitwise,
@@ -273,6 +278,10 @@ ATTN_CASES = [
     (1, 64, 64, 2, 2, 32, False, 20, 64, 0),        # window, not causal
     (1, 40, 70000, 2, 1, 16, True, 0, 70000, 0),    # two passes
     (1, 40, 70000, 2, 1, 16, True, 3000, 70000, 0),  # first pass dead
+    # zamba2's (112, 112): a short last stage of Q K^T, P V in passes of 7
+    (2, 130, 130, 4, 4, 112, True, 0, 130, 0),      # g = 1, ragged
+    (1, 300, 300, 4, 4, 112, True, 48, 300, 0),     # windowed
+    (1, 100, 140, 6, 2, 112, False, 0, 140, 0),     # not causal, T != S
 ]
 
 # decode steps (S = 1), the same fields; the first four were the S = 1
@@ -294,6 +303,10 @@ DECODE_CASES = [
     (1, 1, 70, 16, 1, 20, True, 0, 70, 0),          # g = 16, CUDA cores
     (2, 1, 500, 16, 1, 192, True, 0, 480, 0),       # mma, Dv = 128
     (1, 1, 200, 4, 4, 32, True, 0, 190, 0),         # one piece, 6 slots
+    # zamba2's step (g = 1, D = 112) and seamless's cross step (not
+    # causal, T = 1024 frames)
+    (4, 1, 2081, 32, 32, 112, True, 0, 2065, 0),
+    (4, 1, 1024, 16, 16, 64, False, 0, 1024, 0),
 ]
 
 
@@ -374,7 +387,8 @@ def test_cuda_flash_attention_checks_its_inputs(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [ATTN_CASES[0], ATTN_CASES[6],
-                                  ATTN_CASES[12], ATTN_CASES[15]],
+                                  ATTN_CASES[12], ATTN_CASES[15],
+                                  ATTN_CASES[17], ATTN_CASES[19]],
                          ids=lambda c: "-".join(map(str, c)))
 def test_cuda_flash_attention_is_bitwise_repeatable(cuda_device, case):
     causal, window = case[6], case[7]
@@ -406,6 +420,29 @@ def test_cuda_flash_attention_row_without_a_visible_key(cuda_device):
     got = kflash.flash_attention(q, k, v, qpos, kpos)
     assert torch.equal(got[:, :16], torch.zeros_like(got[:, :16]))
     assert_close(got[:, 16:], ref.attention(q, k, v, qpos, kpos)[:, 16:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 1])
+def test_cuda_cross_attention_shape(cuda_device, S):
+    """seamless's cross-attention call (``attention.cross_apply``): not
+    causal, all-zero positions, 16 heads of 64 over T = 1024 encoder
+    frames; S = 64 (prefill) runs ``flash_attention``, S = 1 (a decode
+    step) ``decode_attention``; bitwise repeatable."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device) for shape in (
+            (4, S, 16, 64), (4, 1024, 16, 64), (4, 1024, 16, 64)))
+    qpos = torch.zeros(S, dtype=torch.int32, device=cuda_device)
+    kpos = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    counter = kflash.launches if S > 1 else kdecode.launches
+    before = counter.value
+    got = ops.attention(q, k, v, qpos, kpos, causal=False)
+    torch.cuda.synchronize()
+    assert counter.value == before + 1
+    assert_close(got, ref.attention(q, k, v, qpos, kpos, causal=False))
+    assert torch.equal(got, ops.attention(q, k, v, qpos, kpos,
+                                          causal=False))
 
 
 @pytest.mark.cuda
@@ -574,6 +611,7 @@ SSD_CASES = [
     (1, 256, 6, 64, 2, 128, 128, False),
     (1, 70, 2, 6, 1, 10, 32, True),         # P, N off 4: 4-byte copies
     (2, 200, 4, 64, 2, 128, 64, True),      # served P, N at chunk 64
+    (2, 300, 4, 64, 1, 64, 128, True),      # zamba2's N = 64
 ]
 
 
@@ -785,6 +823,59 @@ def test_cuda_ssm_and_moe_lm_match_plain(cuda_device, arch):
         torch.cuda.set_sync_debug_mode(0)
     if cfg.ssm:
         assert [c.value for c in counters] == before   # decode: no kernel
+    np.testing.assert_allclose(lg.cpu().numpy(), full[:, 39].cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-7b-reduced",
+                                  "seamless-m4t-medium-reduced"])
+def test_cuda_hybrid_and_encdec_match_plain(cuda_device, arch):
+    """The hybrid (5 layers, the shared block every 2: two invocations
+    and a tail layer) and the enc-dec on the card: prefill logits within
+    the tolerance of the plain versions, through exactly the expected
+    kernels; a decode step issues no host sync and launches the
+    expected ``decode_attention``s; cached decode against the
+    teacher-forced forward (2e-3)."""
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, num_layers=5, shared_attn_every=2)
+    rt = RuntimeOptions()
+    m = get_model(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = m.init(gen, cfg, rt, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device=cuda_device)
+    pe = None
+    if cfg.family == "encdec":
+        pe = torch.randn((2, cfg.n_prefix_tokens, cfg.frontend_dim),
+                         generator=gen, device=cuda_device)
+    counters = (kflash.launches, kdecode.launches, kssd.launches,
+                kconv.launches)
+    before = [c.value for c in counters]
+    lg, cache = m.prefill(params, toks[:, :38], cfg, rt, prefix_embeds=pe,
+                          max_len=41)
+    got = [c.value - b for c, b in zip(counters, before)]
+    if cfg.family == "hybrid":
+        want, per_step = [2, 0, 5, 15], 2
+    else:
+        want, per_step = [cfg.enc_layers + 2 * cfg.dec_layers, 0, 0, 0], \
+            2 * cfg.dec_layers
+    assert got == want, got
+    plain, _ = m.prefill(params, toks[:, :38], cfg,
+                         RuntimeOptions(impl="torch"), prefix_embeds=pe,
+                         max_len=41)
+    assert_close(lg, plain)
+    full, _ = m.forward(params, toks, cfg, rt, prefix_embeds=pe)
+    before = kdecode.launches.value
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(2):
+            lg, cache = m.decode_step(params, cache, toks[:, 38 + t], cfg,
+                                      rt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kdecode.launches.value == before + 2 * per_step
     np.testing.assert_allclose(lg.cpu().numpy(), full[:, 39].cpu().numpy(),
                                rtol=2e-3, atol=2e-3)
 

@@ -414,7 +414,8 @@ def test_decode_split_plan_at_the_served_shapes(case):
     """The absorbed step takes the tensor cores in 33 pieces of two
     tiles (half the first version's 66 pieces of one, half its partial
     sums); the materialized and qwen steps fill one wave at two blocks
-    an SM; smollm's 97 slots are one piece, so one launch and no
+    an SM, and so do zamba2's (2 pieces) and seamless's cross step (4);
+    smollm's 97 slots are one piece, so one launch and no
     combine, with all four of its tiles in flight at once.  (The card
     test ``test_cuda_decode_plan_at_the_served_shapes`` holds the C
     plan to the same table.)"""

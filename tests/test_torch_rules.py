@@ -2,7 +2,8 @@
 
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   anything of the JAX package (``repro``);
-* the kernel modules, the LM paths' modules (dense, MoE, SSM), the
+* the kernel modules, the LM paths' modules (dense, MoE, SSM, hybrid,
+  enc-dec), the
   training path's modules and ``chip_smoke.py`` hold no ``try``:
   nothing catches a kernel build or launch to fall back to the plain
   version;
@@ -35,7 +36,7 @@ from repro_torch.kernels import ssd as kssd
 from repro_torch.kernels import window_gather as kgather
 from repro_torch.launch import serve
 from repro_torch.launch import train as launch_train
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models.ecg_resnext import init_ecg
 from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.serving import aggregator as ta
@@ -46,15 +47,17 @@ from repro_torch.training.data import lm_batches
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-# the LM serving paths (dense, MoE, pure SSM), from the launcher down to
-# the kernel wrappers
+# the LM serving paths (dense, MoE, pure SSM, hybrid, enc-dec), from the
+# launcher down to the kernel wrappers
 LM_PATH = [PORT / f for f in (
     "launch/serve.py", "models/api.py", "models/transformer.py",
     "models/attention.py", "models/layers.py", "models/runtime.py",
     "models/convert.py", "models/ssm.py", "models/moe.py",
+    "models/hybrid.py", "models/encdec.py",
     "configs/base.py", "configs/registry.py", "configs/qwen3_4b.py",
     "configs/smollm_360m.py", "configs/mamba2_2p7b.py",
-    "configs/phi35_moe_42b.py", "kernels/ops.py", "kernels/ref.py",
+    "configs/phi35_moe_42b.py", "configs/zamba2_7b.py",
+    "configs/seamless_m4t_medium.py", "kernels/ops.py", "kernels/ref.py",
     "kernels/flash_attention.py", "kernels/ssd.py", "kernels/moe_gmm.py",
     "kernels/conv1d_stripe.py")]
 # the training path: the train loops, the optimizer, checkpoints, data,
@@ -120,13 +123,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         resolve_device("cuda:0")
     cfg = get_config("qwen3-4b-reduced")
     for arch in ("qwen3-4b-reduced", "mamba2-2.7b-reduced",
-                 "phi3.5-moe-42b-a6.6b-reduced"):
+                 "phi3.5-moe-42b-a6.6b-reduced", "zamba2-7b-reduced",
+                 "seamless-m4t-medium-reduced"):
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", arch, "--new-tokens", "1"])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        transformer.init_lm(torch.Generator(), cfg, RuntimeOptions())
-    with pytest.raises(RuntimeError, match="CUDA"):
-        transformer.init_cache(cfg, RuntimeOptions(), 1, 8)
+    for mod, init, arch in (
+            (transformer, transformer.init_lm, "qwen3-4b-reduced"),
+            (hybrid, hybrid.init_hybrid, "zamba2-7b-reduced"),
+            (encdec, encdec.init_encdec, "seamless-m4t-medium-reduced")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init(torch.Generator(), get_config(arch), RuntimeOptions())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.init_cache(get_config(arch), RuntimeOptions(), 1, 8)
     spec = zoo_specs(reduced=True, input_len=250)[0]
     x, y = np.zeros((4, 250), np.float32), np.zeros(4, np.int32)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -421,7 +421,8 @@ def test_ecg_model_learns(icu_data, monkeypatch):
 # ------------------------------------------------------------- LM train
 LM_ARCHS = ["smollm-360m-reduced", "internvl2-26b-reduced",
             "mamba2-2.7b-reduced", "phi3.5-moe-42b-a6.6b-reduced",
-            "deepseek-v2-lite-16b-reduced"]
+            "deepseek-v2-lite-16b-reduced", "zamba2-7b-reduced",
+            "seamless-m4t-medium-reduced"]
 _LM = {}
 
 

@@ -34,7 +34,7 @@ from repro.models.api import get_model as j_get_model
 from repro.models.runtime import RuntimeOptions as JRuntimeOptions
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.launch import serve
-from repro_torch.models import layers, transformer
+from repro_torch.models import encdec, hybrid, layers, transformer
 from repro_torch.models.api import get_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.runtime import RuntimeOptions
@@ -213,13 +213,24 @@ def test_stacked_init_scales_by_the_per_layer_fan_in():
 
 
 def test_later_families_name_their_slice():
-    for arch in ("zamba2-7b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(get_config(arch + "-reduced"))
-    for arch in ("mamba2-2.7b", "phi3.5-moe-42b-a6.6b"):     # ported
-        assert get_model(get_config(arch)).prefill is transformer.prefill
-    cfg = get_config("deepseek-v2-lite-16b-reduced")           # MLA: ported
-    assert get_model(cfg).prefill is transformer.prefill
+    """Every one of the ten arch ids gets a ``ModelApi``: hybrid and
+    enc-dec from their own modules (ROADMAP §1 item 13.5), the rest
+    from ``transformer.py`` (MLA and MoE among them)."""
+    by_family = {"hybrid": (hybrid, hybrid.init_hybrid),
+                 "encdec": (encdec, encdec.init_encdec)}
+    for arch in ARCH_IDS:
+        for name in (arch, arch + "-reduced"):
+            cfg = get_config(name)
+            mod, init = by_family.get(cfg.family,
+                                      (transformer, transformer.init_lm))
+            api = get_model(cfg)
+            assert (api.init, api.forward, api.prefill, api.decode_step,
+                    api.init_cache) == (init, mod.forward, mod.prefill,
+                                        mod.decode_step, mod.init_cache)
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(dataclasses.replace(get_config("qwen3-4b"),
+                                      family="rnn"))
+    cfg = get_config("deepseek-v2-lite-16b-reduced")           # MLA
     params = transformer.init_lm(torch.Generator(), cfg, RuntimeOptions(),
                                  "cpu")
     assert "w_uk" in params["segments"][0]["attn"]
@@ -237,3 +248,17 @@ def test_serve_main_runs_on_the_cpu(capsys):
                 "decode_ms_per_token"):
         assert key in rec
     assert rec["device"] == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b-reduced",
+                                  "seamless-m4t-medium-reduced"])
+def test_serve_main_runs_hybrid_and_encdec_on_the_cpu(capsys, arch):
+    assert serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "16", "--new-tokens", "3"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("generated tokens[0,:16]: ")
+    assert len(json.loads(out[0].split(": ", 1)[1])) == 4
+    rec = json.loads(out[-1])
+    assert rec["arch"] == arch and rec["device"] == "cpu"
+    for key in ("prefill_s", "decode_tok_per_s", "decode_ms_per_token"):
+        assert rec[key] > 0
