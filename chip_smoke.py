@@ -87,7 +87,11 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    more ``decode_attention`` launches, its logits against the
    materialized ones (2e-3), one absorbed step against plain (1e-4),
    both forms against the teacher-forced forward on a 512-token prompt,
-   and both decode times;
+   and both decode times; then the prefill and 4 decode steps with
+   ``moe_impl="shard_map"`` over a one-rank NCCL mesh
+   (``make_host_mesh()``) against the gspmd run, in turns: logits
+   bitwise (else within 1e-4, reported), the same 27 + 108 + 130
+   launches, the prefill seconds and decode ms/token both ways;
 8. training, with cuDNN's and cuBLAS's TF32 switched on for the process
    (each train step must turn them off and put them back): (a) the
    largest full-zoo member (w128_b16, 30-s clips), 3 steps at batch 32
@@ -104,8 +108,12 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    at ``binding_budget``; (c) smollm-360m at full width and depth: one
    step's loss and every grad (B=1, S=64) against the CPU's, then 25
    steps at B=8, S=128 through ``launch/train.py``'s argv, its loss
-   falling; (d) the kernel guard: ``ecg_apply`` on params that require
-   grad with ``impl="cuda"`` raises before any launch;
+   falling, and one step at B=8, S=128 with ``remat=True`` against one
+   without from the same params (loss and every grad bitwise, else
+   within 1e-4, reported), each timed in turns with its peak memory,
+   and the peak of ``value_and_grad`` alone both ways;
+   (d) the kernel guard: ``ecg_apply`` on params that require grad with
+   ``impl="cuda"`` raises before any launch;
 9. the hybrid path: zamba2-7b at full width and depth (81 layers,
    d_model 3584, ~6.6 B params; the shared attention block every 6
    layers) at the same traffic as phase 4: exactly 13
@@ -118,7 +126,12 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    prompt, 32 new tokens; exactly 36 ``flash_attention`` (encoder not
    causal, decoder self causal, cross not causal over the frames) and
    768 ``decode_attention`` launches, phase 4's checks;
-11. a ``kernels`` JSON line (the seven ported kernels), and the last line
+11. the mesh tools on this machine's torch (fake backend, on the CPU,
+   no kernel): the production-mesh dry run (``launch/dryrun.py``) of
+   qwen3-4b and of deepseek-v2-lite-16b with ``moe_impl`` gspmd and
+   shard_map at train_4k on the 16x16 mesh, the roofline of qwen3-4b x
+   train_4k and ``dryrun_ensemble``, each record with its seconds;
+12. a ``kernels`` JSON line (the seven ported kernels), and the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``ssd`` (y and hT) and ``moe_gmm`` against their
@@ -132,8 +145,9 @@ device time (a CUDA graph) and host time beside the event-timed figure
 (``decode_attention`` and ``ssd`` with their plan and scratch bytes).
 ``--only=gather,flash`` runs phase 2 for the named kernels alone
 (``--only=flush``: phase 3 alone, its flush times and host stages;
-``--only=train``: phase 8 alone; ``--only=hybrid,encdec``: phases 9 and
-10 alone) and prints no result line.
+``--only=mla``: phase 7 alone; ``--only=train``: phase 8 alone;
+``--only=hybrid,encdec``: phases 9 and 10 alone; ``--only=mesh``: phase
+11 alone) and prints no result line.
 ``--profile`` adds one traced flush at P=8 and at P=64 after phase 3 and
 one traced prefill and decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe,
 deepseek-v2-lite (and one absorbed step), zamba2-7b and
@@ -1670,10 +1684,127 @@ def phase_mla(torch, record, card, argv, counters, expected, profile=False,
     if profile:
         rec["profile"] = phase_llm_profile(torch, r, max_len,
                                            absorbed_ms=abs_ms)
+    rec["shard_map"] = _sharded_moe(torch, r, counters, max_len, card)
     record[f"llm_{args.arch}"] = rec
     del r
     torch.cuda.empty_cache()
     return rec
+
+
+def _sharded_moe(torch, r, counters, max_len, card, steps=4):
+    """The served prompt's prefill and ``steps`` decode steps (fed the
+    served tokens) with ``moe_impl="gspmd"`` (the launcher's) and with
+    ``moe_impl="shard_map"`` over a one-rank NCCL mesh
+    (``make_host_mesh()``: ``moe_apply_sharded`` with its all-reduce
+    over "model"; its communicators made by one all-reduce a mesh dim
+    first, timed apart), from the same params, in turns (gspmd, shard_map,
+    shard_map, gspmd), each run's launches counted.  The logits must be
+    bitwise the gspmd run's (a one-rank all-reduce is a copy), or else
+    within 1e-4, reported; the launches equal.  Times: the prefill's
+    seconds and the decode's ms a token (host clock after a sync)."""
+    from repro_torch.launch.mesh import make_host_mesh, teardown
+    from repro_torch.models import transformer
+
+    import torch.distributed as dist
+
+    cfg, rt, gen = r["cfg"], r["rt"], r["generated"]
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    # NCCL makes a group's communicator at its first collective: one
+    # for each mesh dim, outside the timed runs
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(torch.zeros(1, device=r["device"]),
+                        group=mesh.get_group(name))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rts = {"gspmd": rt, "shard_map": dataclasses.replace(
+        rt, moe_impl="shard_map", mesh=mesh)}
+    runs = {"gspmd": [], "shard_map": []}
+    for impl in ("gspmd", "shard_map", "shard_map", "gspmd"):
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(r["params"], r["tokens"], cfg,
+                                            rts[impl], max_len=max_len)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        out = [logits]
+        t0 = time.perf_counter()
+        for t in range(steps):
+            lg, cache = transformer.decode_step(r["params"], cache, gen[:, t],
+                                                cfg, rts[impl])
+            out.append(lg)
+        torch.cuda.synchronize()
+        runs[impl].append({
+            "logits": out, "prefill_s": t_pre,
+            "decode_ms_per_token": 1e3 * (time.perf_counter() - t0) / steps,
+            "launches": {c.name: c.value for c in counters}})
+        del cache
+    teardown()
+    g, s_ = runs["gspmd"][0], runs["shard_map"][0]
+    if any(run["launches"] != g["launches"]
+           for run in runs["gspmd"] + runs["shard_map"]):
+        raise AssertionError(f"shard_map launches {s_['launches']} vs "
+                             f"gspmd {g['launches']}")
+    pairs = list(zip(s_["logits"], g["logits"]))
+    bitwise = all(bool(torch.equal(a, b)) for a, b in pairs)
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    if not bitwise and not all(torch.allclose(a, b, rtol=TOL, atol=TOL)
+                               for a, b in pairs):
+        raise AssertionError(f"shard_map logits vs gspmd: max abs err {err}")
+    rec = {impl: {k: [run[k] for run in runs[impl]]
+                  for k in ("prefill_s", "decode_ms_per_token")}
+           for impl in runs}
+    rec.update({"steps": steps, "launches": g["launches"],
+                "bitwise": bitwise, "max_abs_err": err, "card": card,
+                "mesh_init_s": t_init})
+    print(f"    shard_map on a one-rank NCCL mesh ({card}): prefill and "
+          f"{steps} steps, launches {g['launches']} both ways; logits "
+          f"{'bitwise' if bitwise else f'within {err:.3g} of'} gspmd's; "
+          f"mesh and communicator {t_init:.2f} s; "
+          f"prefill s gspmd {rec['gspmd']['prefill_s']} shard_map "
+          f"{rec['shard_map']['prefill_s']}; decode ms/token gspmd "
+          f"{rec['gspmd']['decode_ms_per_token']} shard_map "
+          f"{rec['shard_map']['decode_ms_per_token']}", flush=True)
+    return rec
+
+
+def _attention_launches(cfg, a, moe_layers=0):
+    """``flash_attention`` once a layer in prefill, ``decode_attention``
+    once a layer in every decode step; ``moe_gmm`` once a MoE layer in
+    prefill and in every step."""
+    L, n = cfg.num_layers, a.new_tokens
+    want = {"flash_attention": L, "decode_attention": L * n}
+    if moe_layers:
+        want["moe_gmm"] = moe_layers * (1 + n)
+    return want
+
+
+def phase_deepseek(torch, record, card, profile=False):
+    """Phase 7: deepseek-v2-lite-16b through ``phase_mla`` with its
+    launches held (27 ``flash_attention``, 864 ``decode_attention`` and
+    858 ``moe_gmm`` served, 864 ``decode_attention`` absorbed), and the
+    sharded MoE run's (``_sharded_moe``): 27, 108 and 130."""
+    from repro_torch.configs.registry import get_config
+
+    ds = phase_mla(torch, record, card,
+                   ["--arch", "deepseek-v2-lite-16b"] + SERVED,
+                   _lm_counters(),
+                   lambda cfg, a: _attention_launches(
+                       cfg, a, cfg.num_layers - cfg.moe.first_dense_layers),
+                   profile=profile)
+    m = get_config("deepseek-v2-lite-16b").moe
+    sm = ds["shard_map"]["launches"]
+    if (ds["layers"], ds["d_model"], m.n_routed_experts, m.top_k,
+            ds["launches"]["flash_attention"],
+            ds["launches"]["decode_attention"], ds["launches"]["moe_gmm"],
+            ds["absorbed_launches"]["decode_attention"],
+            sm["flash_attention"], sm["decode_attention"],
+            sm["moe_gmm"]) != (27, 2048, 64, 6, 27, 864, 858, 864, 27, 108,
+                               130):
+        raise AssertionError(f"deepseek-v2-lite-16b served at {ds}")
+    return ds
 
 
 def _lm_counters():
@@ -1742,6 +1873,58 @@ def phase_encdec(torch, np, record, card, profile=False):
         raise AssertionError(f"seamless-m4t-medium served at {rec}")
     torch.cuda.empty_cache()
     return rec
+
+
+def phase_mesh(torch, record, card):
+    """Phase 11: the mesh tools on this machine's torch, all on the CPU
+    over the fake backend (no kernel runs): the production-mesh dry run
+    of qwen3-4b and of deepseek-v2-lite-16b (``moe_impl`` gspmd, then
+    shard_map) at train_4k on the 16x16 mesh, the roofline of qwen3-4b
+    x train_4k (two probe dry runs) and ``dryrun_ensemble`` on the
+    2x16x16 mesh; each record and its seconds.  The shard_map schedule
+    must move fewer collective bytes than gspmd's and count the same
+    flops; a failed combination raises."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.ensemble_parallel import dryrun_ensemble
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, arch, over in (
+            ("qwen3-4b", "qwen3-4b", None),
+            ("deepseek gspmd", "deepseek-v2-lite-16b", {"moe_impl": "gspmd"}),
+            ("deepseek shard_map", "deepseek-v2-lite-16b",
+             {"moe_impl": "shard_map"})):
+        t0 = time.perf_counter()
+        rec = dryrun.dryrun_one(arch, "train_4k", rt_overrides=over)
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        print(f"  dry run {name} x train_4k x 16x16 in "
+              f"{rec['seconds']:.1f} s: {json.dumps(rec)}", flush=True)
+    g, s_ = out["deepseek gspmd"], out["deepseek shard_map"]
+    if not 0 < s_["collective_total"] < g["collective_total"]:
+        raise AssertionError(f"shard_map collective bytes "
+                             f"{s_['collective_total']} vs gspmd "
+                             f"{g['collective_total']}")
+    if g["flops"] != s_["flops"]:
+        raise AssertionError(f"gspmd flops {g['flops']} vs shard_map "
+                             f"{s_['flops']}: both compute the experts "
+                             f"on local tokens")
+    t0 = time.perf_counter()
+    out["roofline qwen3-4b train_4k"] = roofline.roofline_one(
+        "qwen3-4b", "train_4k")
+    out["roofline qwen3-4b train_4k"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["ensemble"] = dryrun_ensemble()
+    out["ensemble"]["seconds"] = time.perf_counter() - t0
+    for k in ("roofline qwen3-4b train_4k", "ensemble"):
+        print(f"  {k} in {out[k]['seconds']:.2f} s: {json.dumps(out[k])}",
+              flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["torch"] = torch.__version__
+    print(f"  mesh tools on torch {torch.__version__} ({card}): phase "
+          f"{out['seconds']:.1f} s", flush=True)
+    record["mesh"] = out
+    return out
 
 
 def phase_profile(torch, svc, refs, lat, record):
@@ -2594,11 +2777,18 @@ def phase_control(torch, np, ctx, record, card):
 
     calib = EnsembleServer(batch_handler=score, n_workers=2,
                            max_batch=64).start()
+    # the 8-bed p99 sets the CLIMB threshold, which the controller holds
+    # to a window's p99 (~200 latencies): it is taken over a window's
+    # rounds too, not over one round's 8, which miss the tail
     p99 = {}
     for k, size in ((2, beds), (0, beds), (1, 8)):
         sw.swap_to(ladder[k])
         round_(calib, size)                # one untimed round first
-        p99[k, size] = float(np.percentile(round_(calib, size), 99))
+        lat = round_(calib, size)
+        t_end = time.monotonic() + (window_s if size == 8 else 0.0)
+        while time.monotonic() < t_end:
+            lat += round_(calib, size)
+        p99[k, size] = float(np.percentile(lat, 99))
     calib.stop()
     sw.swap_to(ladder[2])
     full, cheap, mid8 = p99[2, beds], p99[0, beds], p99[1, 8]
@@ -2648,13 +2838,20 @@ def phase_control(torch, np, ctx, record, card):
             break
     predicted = ctl.snapshot().predicted_latency
     time.sleep(window_s + 0.1)             # the overload ages out
-    for _ in range(24):                    # 8-bed rounds: CLIMB
+    # 8-bed rounds: CLIMB, for up to 4 windows, so that one slow round
+    # (a host stall) ages out of the window instead of holding the
+    # evidence over the threshold to the end of the drill
+    climb_trace, deadline = [], time.monotonic() + 4 * window_s
+    while sw.ladder_pos != 2 and time.monotonic() < deadline:
         k = sw.ladder_pos
-        by_rung[k] += round_(srv, 8, tel)
-        if step() is Decision.CLIMB:
+        lat = round_(srv, 8, tel)
+        by_rung[k] += lat
+        snap = ctl.snapshot()
+        d = step()
+        if d is Decision.CLIMB:
             climbs.append(sw.ladder_pos)
-        if sw.ladder_pos == 2:
-            break
+        climb_trace.append((names[k], 1e3 * float(np.percentile(lat, 99)),
+                            1e3 * snap.p99, snap.violation_rate, d.value))
     srv.stop()
     shed_to_cheaper = [min(t for t, k, _, _ in flushes
                            if t > t_s and k == pos) - t_s
@@ -2671,7 +2868,10 @@ def phase_control(torch, np, ctx, record, card):
             or sw.ladder_pos != 2:
         failures.append(f"(a): sheds {len(sheds)}, climbs {climbs}, rung "
                         f"{sw.ladder_pos}, failed {srv.stats.failed}, "
-                        f"leaked {srv.leaked}")
+                        f"leaked {srv.leaked}; CLIMB wants window p99 <= "
+                        f"{1e3 * headroom * slo:.1f} ms; last 8-bed rounds "
+                        f"(rung, round p99 ms, window p99 ms, violation "
+                        f"rate, decision) {climb_trace[-4:]}")
     if metric.get("holmes_served_total") != served \
             or exported != {k: float(v) for k, v in counts.items()}:
         failures.append(f"exporter: served {metric.get('holmes_served_total')}"
@@ -2689,7 +2889,7 @@ def phase_control(torch, np, ctx, record, card):
                                 "cheap 64": 1e3 * cheap, "mid 8": 1e3 * mid8},
          "members": {nm: int(s.sum()) for nm, s in zip(names, ladder)},
          "stage_s": stage_s, "overload_rounds_p99_ms": overload,
-         "rung_p99_ms": rung_p99,
+         "rung_p99_ms": rung_p99, "climb_rounds": climb_trace,
          "decisions": [d.value for _, d in ctl.log],
          "step_ms_p50": float(np.percentile(step_ms, 50)),
          "tap_us_per_query": tap_us, "shed_to_cheaper_s": shed_to_cheaper,
@@ -2701,6 +2901,7 @@ def phase_control(torch, np, ctx, record, card):
           f"{1e3 * mid8:.1f}; headroom {headroom:.2f}); decisions "
           f"{a['decisions']}; rung p99 (ms) "
           + ", ".join(f"{k} {v:.1f}" for k, v in rung_p99.items())
+          + f"; {len(climb_trace)} 8-bed rounds to climb"
           + f"; step() p50 {a['step_ms_p50']:.3f} ms; telemetry tap "
           f"{tap_us:.2f} us a query; SHED to the first cheaper score (s) "
           + ", ".join(f"{x:.3f}" for x in shed_to_cheaper)
@@ -2906,6 +3107,85 @@ def _tree_err(torch, got, want, hold: bool = True) -> float:
                                  f"{float((a - b).abs().max())}")
         worst = max(worst, float((a - b).abs().max()))
     return worst
+
+
+def _remat_step(torch, np, cfg, dev, card):
+    """smollm-360m, B=8 S=128 (the launcher's 25 steps' traffic): one
+    step's loss and every grad with ``remat=True`` from the same params
+    as with ``remat=False`` (bitwise expected: the recompute repeats
+    the forward's ops in its order; else held within 1e-4 and
+    reported), with the peak device memory of ``value_and_grad`` alone
+    both ways (absolute, and above what was allocated when it began: the
+    activations remat frees), then the train step timed both ways in
+    turns (off, on, on, off; 3 steps from the same params after a
+    warm-up each) with the peak device memory of each."""
+    from repro_torch.models.api import get_model
+    from repro_torch.models.ecg_resnext import leaves
+    from repro_torch.models.runtime import RuntimeOptions
+    from repro_torch.training.data import lm_batches
+    from repro_torch.training.optimizer import AdamW, constant_schedule
+    from repro_torch.training.train_loop import (Fp32Step, lm_loss,
+                                                 make_train_step,
+                                                 value_and_grad)
+
+    params = get_model(cfg).init(torch.Generator(device=dev).manual_seed(
+        SEED), cfg, RuntimeOptions(), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(lm_batches(
+        cfg.vocab_size, 8, 128, seed=SEED)).items()}
+    rts = {r: RuntimeOptions(impl="torch", remat=r) for r in (False, True)}
+    got, vg_peak, vg_rise = {}, {}, {}
+    for remat, rt in rts.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with Fp32Step(dev):
+            got[remat] = value_and_grad(
+                lambda p: lm_loss(p, batch, cfg, rt), params)
+        torch.cuda.synchronize()
+        vg_peak[remat] = torch.cuda.max_memory_allocated(dev) / 2**30
+        vg_rise[remat] = vg_peak[remat] - base / 2**30
+    (l0, g0), (l1, g1) = got[False], got[True]
+    bitwise = bool(torch.equal(l0, l1)) and all(
+        torch.equal(a, b) for a, b in zip(leaves(g0), leaves(g1)))
+    err = 0.0 if bitwise else max(
+        abs(float(l0) - float(l1)), _tree_err(torch, g1, g0))
+    del got, g0, g1
+    opt = AdamW(lr=constant_schedule(3e-4))
+    state = opt.init(params)
+    ms = {False: [], True: []}
+    peak = {False: 0, True: 0}
+    for remat in (False, True, True, False):
+        step = make_train_step(cfg, rts[remat], opt)
+        float(step(params, state, batch)[2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            loss = step(params, state, batch)[2]
+        float(loss)
+        torch.cuda.synchronize()
+        ms[remat].append(1e3 * (time.perf_counter() - t0) / 3)
+        peak[remat] = max(peak[remat], torch.cuda.max_memory_allocated(dev))
+    rec = {"loss_grads_bitwise": bitwise, "loss_grads_max_abs_err": err,
+           "loss": float(l0), "ms_per_step": ms,
+           "peak_gib": {str(k).lower(): v / 2**30 for k, v in peak.items()},
+           "value_and_grad_peak_gib": {str(k).lower(): v
+                                       for k, v in vg_peak.items()},
+           "value_and_grad_rise_gib": {str(k).lower(): v
+                                       for k, v in vg_rise.items()},
+           "card": card}
+    print(f"  (c) remat on {card}: loss and every grad with remat "
+          f"{'bitwise' if bitwise else f'within {err:.3g} of'} those "
+          f"without; step {np.mean(ms[False]):.1f} ms without "
+          f"({', '.join(f'{v:.1f}' for v in ms[False])}), "
+          f"{np.mean(ms[True]):.1f} ms with "
+          f"({', '.join(f'{v:.1f}' for v in ms[True])}); peak "
+          f"{peak[False] / 2**30:.2f} -> {peak[True] / 2**30:.2f} GiB; "
+          f"value_and_grad alone peak {vg_peak[False]:.2f} -> "
+          f"{vg_peak[True]:.2f} GiB, {vg_rise[False]:.2f} -> "
+          f"{vg_rise[True]:.2f} GiB above its start",
+          flush=True)
+    return rec
 
 
 def phase_training(torch, np, record, card):
@@ -3187,6 +3467,7 @@ def phase_training(torch, np, record, card):
         "argv": argv, "losses": losses, "wall_s": r["wall_s"],
         "ms_per_step": ms, "tokens_per_s": 25 * 8 * 128 / r["wall_s"],
         "peak_bytes": r["peak_bytes"]}
+    out["lm"]["remat"] = _remat_step(torch, np, cfg, dev, card)
     print(f"  (c) smollm-360m on {card} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}): one step at B=1 S=64, loss card "
           f"{float(l_dev):.6f} CPU {float(l_cpu):.6f}, grads max abs err "
@@ -3248,10 +3529,21 @@ def phase_only(torch, np, F, specs, record, card, names,
     """``--only=gather,flash,...``: phase 2 for the named kernels alone
     (gather, conv, mamba_conv, flash, decode, ssd, gmm), or ``flush``:
     phase 3 alone (the full zoo's main path and its P=8/P=64 flush
-    times and host stages), ``train``: phase 8 alone, ``hybrid`` or
-    ``encdec``: phase 9 or 10 alone (traced with ``--profile``), its
-    records in ``chiprun_out/chip_smoke_only.json``; no result line."""
+    times and host stages), ``control``: phase 3d's drills over phase
+    3's zoo (built once, so ``--only=control,control`` repeats the
+    drills), ``mla``: phase 7 alone, ``train``: phase 8
+    alone, ``hybrid`` or ``encdec``: phase 9 or 10 alone (traced with
+    ``--profile``), ``mesh``: phase 11 alone, its records in
+    ``chiprun_out/chip_smoke_only.json``; no result line."""
+    main_ctx = []
+
+    def control():
+        if not main_ctx:
+            main_ctx.append(phase_main(torch, np, specs, record, card)[2])
+        phase_control(torch, np, main_ctx[0], record, card)
+
     phases = {"flush": lambda: phase_main(torch, np, specs, record, card),
+              "control": control,
               "gather": lambda: phase_gather(torch, np, record),
               "conv": lambda: phase_conv(torch, np, F, specs, record),
               "mamba_conv": lambda: phase_mamba_conv(torch, np, F, record),
@@ -3262,6 +3554,8 @@ def phase_only(torch, np, F, specs, record, card, names,
               "train": lambda: phase_training(torch, np, record, card),
               "hybrid": lambda: phase_hybrid(torch, np, record, card,
                                              profile),
+              "mesh": lambda: phase_mesh(torch, record, card),
+              "mla": lambda: phase_deepseek(torch, record, card, profile),
               "encdec": lambda: phase_encdec(torch, np, record, card,
                                              profile)}
     unknown = [n for n in names if n not in phases]
@@ -3357,16 +3651,7 @@ def main() -> int:
           "depth; smollm-360m)", flush=True)
     from repro_torch.configs.registry import get_config
     counters = _lm_counters()
-
-    def attention_launches(cfg, a, moe_layers=0):
-        """``flash_attention`` once a layer in prefill, ``decode_attention``
-        once a layer in every decode step; ``moe_gmm`` once a MoE layer in
-        prefill and in every step."""
-        L, n = cfg.num_layers, a.new_tokens
-        want = {"flash_attention": L, "decode_attention": L * n}
-        if moe_layers:
-            want["moe_gmm"] = moe_layers * (1 + n)
-        return want
+    attention_launches = _attention_launches
 
     qwen = phase_llm(torch, np, record, card, ["--arch", "qwen3-4b"] + SERVED,
                      counters, attention_launches, profile=profile)
@@ -3422,20 +3707,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("phase 7: MLA serving path (deepseek-v2-lite-16b, full width "
-          "and depth; materialized, then absorbed)", flush=True)
-    ds_cfg = get_config("deepseek-v2-lite-16b")
-    ds = phase_mla(torch, record, card,
-                   ["--arch", "deepseek-v2-lite-16b"] + SERVED, counters,
-                   lambda cfg, a: attention_launches(
-                       cfg, a, cfg.num_layers - cfg.moe.first_dense_layers),
-                   profile=profile)
-    m = ds_cfg.moe
-    if (ds["layers"], ds["d_model"], m.n_routed_experts, m.top_k,
-            ds["launches"]["flash_attention"],
-            ds["launches"]["decode_attention"], ds["launches"]["moe_gmm"],
-            ds["absorbed_launches"]["decode_attention"]) != (
-                27, 2048, 64, 6, 27, 864, 858, 864):
-        raise AssertionError(f"deepseek-v2-lite-16b served at {ds}")
+          "and depth; materialized, then absorbed; then shard_map on a "
+          "one-rank NCCL mesh)", flush=True)
+    ds = phase_deepseek(torch, record, card, profile)
     dm, da = (decode["deepseek MLA decode materialized"],
               decode["deepseek MLA decode absorbed"])
     print(f"  deepseek-v2-lite-16b decode_attention share (27 x kernel ms at "
@@ -3464,6 +3738,10 @@ def main() -> int:
     print("phase 10: enc-dec serving path (seamless-m4t-medium, full width "
           "and depth)", flush=True)
     seamless = phase_encdec(torch, np, record, card, profile=profile)
+
+    print("phase 11: mesh tools (production-mesh dry runs, roofline, "
+          "ensemble; fake backend, on the CPU)", flush=True)
+    phase_mesh(torch, record, card)
 
     def conv_row(name, key, replaces):
         t = conv[key]
@@ -3542,6 +3820,8 @@ def main() -> int:
              "smollm-360m": smollm["launches"]["flash_attention"],
              "phi3.5-moe (10 layers)": phi["launches"]["flash_attention"],
              "deepseek-v2-lite-16b": ds["launches"]["flash_attention"],
+             "deepseek-v2-lite-16b shard_map (prefill + 4 steps, each run)":
+                 ds["shard_map"]["launches"]["flash_attention"],
              "zamba2-7b": zamba["launches"]["flash_attention"],
              "seamless-m4t-medium": seamless["launches"]["flash_attention"]},
          "max_abs_err": max(v["max_abs_err"] for v in flash.values()),
@@ -3571,6 +3851,8 @@ def main() -> int:
                  ds["launches"]["decode_attention"],
              "deepseek-v2-lite-16b absorbed":
                  ds["absorbed_launches"]["decode_attention"],
+             "deepseek-v2-lite-16b shard_map (prefill + 4 steps, each run)":
+                 ds["shard_map"]["launches"]["decode_attention"],
              "qwen3-4b": qwen["launches"]["decode_attention"],
              "smollm-360m": smollm["launches"]["decode_attention"],
              "phi3.5-moe (10 layers)": phi["launches"]["decode_attention"],
@@ -3623,7 +3905,9 @@ def main() -> int:
              "phi3.5-moe (10 layers)": phi["launches"]["moe_gmm"],
              "deepseek-v2-lite-16b": ds["launches"]["moe_gmm"],
              "deepseek-v2-lite-16b absorbed decode":
-                 ds["absorbed_launches"]["moe_gmm"]},
+                 ds["absorbed_launches"]["moe_gmm"],
+             "deepseek-v2-lite-16b shard_map (prefill + 4 steps, each run)":
+                 ds["shard_map"]["launches"]["moe_gmm"]},
          "shape": "phi3.5-moe prefill: [16, 1296, 4096], f=6400",
          "path": gp["path"], "tf32x3_ops_ms": gp["tf32x3_ops_ms"],
          "fp32_ops_ms": gp["fp32_ops_ms"],

@@ -1,0 +1,33 @@
+"""The four assigned input shapes (``repro/configs/shapes.py``, data
+only).
+
+``kind`` selects which step the dry run builds (``launch/dryrun.py``):
+  * train   -> train_step (tokens + labels)
+  * prefill -> serve_prefill (full-sequence forward, no grad)
+  * decode  -> serve_step (ONE new token against a KV cache of seq_len)
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def get_shape(name: str) -> InputShape:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; options: {sorted(SHAPES)}")
+    return SHAPES[name]

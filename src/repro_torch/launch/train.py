@@ -11,14 +11,17 @@ runs on the CPU).  Every train step runs the plain versions under
 autograd with TF32 off (``training.train_loop``).  Prints a loss line
 every 10 steps and one JSON line with the reference's keys
 (``first_loss``, ``last_loss``, ``wall_s``, ``steps_per_s``); the card
-is synchronised by each step's loss read.  ``--dry-run`` (the
-reference's lowering on the production mesh) has no counterpart yet: it
-exits with an error naming ROADMAP item 14.
+is synchronised by each step's loss read.  ``--dry-run`` runs the
+production-mesh dry run of the full-size architecture instead
+(``python -m repro_torch.launch.dryrun --arch <arch> --shape train_4k
+--both-meshes``, in a process of its own, as the reference does): no
+card is needed.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -43,15 +46,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower on the production mesh (not ported: "
-                         "ROADMAP item 14)")
+                    help="run the production-mesh dry run instead")
     ap.add_argument("--device", default=None,
                     help="default cuda:0; 'cpu' trains on the CPU")
-    args = ap.parse_args(argv)
-    if args.dry_run:
-        ap.error("--dry-run needs the mesh tools (launch/mesh.py, "
-                 "dryrun.py), which are not ported yet: ROADMAP item 14")
-    return args
+    return ap.parse_args(argv)
 
 
 def run(args: argparse.Namespace) -> dict:
@@ -94,6 +92,11 @@ def run(args: argparse.Namespace) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.dry_run:
+        return subprocess.call(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--arch", args.arch.replace("-reduced", ""),
+             "--shape", "train_4k", "--both-meshes"])
     r = run(args)
     losses, dt, params = r["losses"], r["wall_s"], r["params"]
     print(json.dumps({"arch": args.arch, "steps": args.steps,

@@ -15,7 +15,9 @@ reference.  As there, the cross-attention's K and V are projected from
 ``enc_out`` again in every layer at every decode step
 (``attention.cross_apply``); nothing of them is cached.
 ``decode_step`` advances the self-attention rings and ``pos`` IN PLACE,
-as ``transformer.decode_step`` does.
+as ``transformer.decode_step`` does.  With ``RuntimeOptions.remat``
+each encoder and decoder layer is recomputed in the backward pass, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from repro_torch.models.layers import (embed, init_embedding, init_linear,
                                        rms_norm, swiglu, unembed)
 from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.models.transformer import (_layer, _stack, cache_len,
-                                            fit_kv_cache)
+                                            fit_kv_cache, remat)
 
 
 def init_encdec(gen: torch.Generator, cfg: ArchConfig, rt: RuntimeOptions,
@@ -68,16 +70,20 @@ def encode(params, audio_embeds: torch.Tensor, cfg: ArchConfig,
     output ``[B, T_a, d]``: non-causal self-attention over every frame."""
     x = linear(params["frontend_proj"], audio_embeds.to(rt.dtype))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    block = remat(_enc_block, rt)
     for i in range(cfg.enc_layers):
-        p_l = _layer(params["enc"], i)
-        h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        y, _ = attn.gqa_apply(p_l["attn"], h, positions, cfg, causal=False,
-                              window=0, kv_mult=rt.kv_mult, impl=rt.impl,
-                              chunk=rt.attn_chunk)
-        x = x + y
-        h = rms_norm(x, p_l["ln2"], cfg.norm_eps)
-        x = x + swiglu(p_l["mlp"], h)
+        x = block(_layer(params["enc"], i), x, positions, cfg, rt)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_block(p_l, x, positions, cfg, rt):
+    h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
+    y, _ = attn.gqa_apply(p_l["attn"], h, positions, cfg, causal=False,
+                          window=0, kv_mult=rt.kv_mult, impl=rt.impl,
+                          chunk=rt.attn_chunk)
+    x = x + y
+    h = rms_norm(x, p_l["ln2"], cfg.norm_eps)
+    return x + swiglu(p_l["mlp"], h)
 
 
 def _dec_block(p_l, x, enc_out, positions, cfg, rt, mode, c_l, cache_pos,
@@ -106,11 +112,12 @@ def _decoder(params, x, enc_out, positions, cfg, rt, mode, cache,
     mode)."""
     c_dec = cache["self"] if cache is not None else None
     fresh = []
+    block = remat(_dec_block, rt)
     for i in range(cfg.dec_layers):
-        x, new_kv = _dec_block(_layer(params["dec"], i), x, enc_out,
-                               positions, cfg, rt, mode,
-                               None if c_dec is None else _layer(c_dec, i),
-                               cache_pos, cache_idx)
+        x, new_kv = block(_layer(params["dec"], i), x, enc_out,
+                          positions, cfg, rt, mode,
+                          None if c_dec is None else _layer(c_dec, i),
+                          cache_pos, cache_idx)
         fresh.append(new_kv)
     return x, (_stack(fresh) if mode == "prefill" else c_dec)
 

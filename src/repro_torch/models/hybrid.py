@@ -32,7 +32,7 @@ from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
                                        init_swiglu, rms_norm, swiglu, unembed)
 from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.models.transformer import (_layer, _stack, cache_len,
-                                            fit_kv_cache)
+                                            fit_kv_cache, remat)
 
 
 def _schedule(cfg: ArchConfig) -> Tuple[int, int, int]:
@@ -120,23 +120,35 @@ def _shared_block(p, x, cfg, rt, positions, mode, cache_l, cache_pos,
     return x + swiglu(p["mlp"], h), new_c
 
 
+def _super_block(p_s, shared, x, cfg, rt, positions, mode, c_s, c_a,
+                 cache_pos, cache_idx):
+    """One super-block: its mamba layers, then the shared block.
+    Returns (x, the mamba layers' caches, the shared block's)."""
+    row = []
+    for i in range(_schedule(cfg)[1]):
+        x, new_c = _mamba_block(_layer(p_s, i), x, cfg, rt, mode,
+                                None if c_s is None else _layer(c_s, i))
+        row.append(new_c)
+    x, new_a = _shared_block(shared, x, cfg, rt, positions, mode, c_a,
+                             cache_pos, cache_idx)
+    return x, row, new_a
+
+
 def _backbone(params, x, cfg, rt, positions, mode, cache, cache_pos,
               cache_idx):
     """Returns (x, mamba_main, attn, mamba_tail): in prefill the fresh
     caches stacked as the cache holds them (``mamba_tail`` None without a
-    tail), else None (decode advanced ``cache`` in place)."""
-    ns, k, tail = _schedule(cfg)
+    tail), else None (decode advanced ``cache`` in place).  With
+    ``rt.remat`` each super-block is recomputed in the backward pass, as
+    the reference's; the tail layers are not."""
+    ns, _, tail = _schedule(cfg)
     main, rings, tails = [], [], []
+    block = remat(_super_block, rt)
     for s in range(ns):
-        p_s = _layer(params["mamba_main"], s)
-        c_s = _layer(cache["mamba_main"], s) if cache is not None else None
-        row = []
-        for i in range(k):
-            x, new_c = _mamba_block(_layer(p_s, i), x, cfg, rt, mode,
-                                    None if c_s is None else _layer(c_s, i))
-            row.append(new_c)
-        x, new_a = _shared_block(
-            params["shared"], x, cfg, rt, positions, mode,
+        x, row, new_a = block(
+            _layer(params["mamba_main"], s), params["shared"], x, cfg, rt,
+            positions, mode,
+            None if cache is None else _layer(cache["mamba_main"], s),
             None if cache is None else _layer(cache["attn"], s), cache_pos,
             cache_idx)
         main.append(row)

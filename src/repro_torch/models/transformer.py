@@ -19,14 +19,20 @@ returns it with ``idx + 1``: a cache is never reused after it has been
 stepped.
 
 Attention is GQA or MLA by ``cfg.attn_type`` (MLA materialized, or
-absorbed with ``RuntimeOptions.absorbed_mla``).  ``forward`` returns the
-MoE load-balance loss summed over the MoE layers as its aux term.
+absorbed with ``RuntimeOptions.absorbed_mla``); the MoE MLP is
+``moe.moe_apply``, or ``moe.moe_apply_sharded`` over ``rt.mesh`` when
+``rt.moe_impl == "shard_map"``.  ``forward`` returns the MoE
+load-balance loss summed over the MoE layers as its aux term.  With
+``RuntimeOptions.remat`` each layer is recomputed in the backward pass
+(``remat``).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -118,9 +124,14 @@ def _apply_block(p, x, btype: str, cfg: ArchConfig, rt: RuntimeOptions,
     else:
         if moe_inputs is not None:
             moe_inputs.append(h)
-        y, aux = moe_mod.moe_apply(p["mlp"], h, cfg,
-                                   capacity_factor=rt.capacity_factor,
-                                   impl=rt.impl)
+        if rt.moe_impl == "shard_map" and rt.mesh is not None:
+            y, aux = moe_mod.moe_apply_sharded(
+                p["mlp"], h, cfg, rt.mesh,
+                capacity_factor=rt.capacity_factor, impl=rt.impl)
+        else:
+            y, aux = moe_mod.moe_apply(p["mlp"], h, cfg,
+                                       capacity_factor=rt.capacity_factor,
+                                       impl=rt.impl)
     return x + y, new_c, aux
 
 
@@ -194,6 +205,17 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def remat(fn, rt: RuntimeOptions):
+    """``fn``, recomputed in the backward pass when ``rt.remat`` (the
+    reference's ``jax.checkpoint`` of a scan body): only its inputs are
+    saved.  The models draw no random numbers, so no RNG state is
+    kept."""
+    if not rt.remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False, preserve_rng_state=False)
+
+
 def _run_segments(params, x, cfg, rt, positions, mode, cache, cache_pos,
                   cache_idx, moe_inputs=None):
     """Returns (x, aux summed over the MoE layers or None without any,
@@ -203,15 +225,16 @@ def _run_segments(params, x, cfg, rt, positions, mode, cache, cache_pos,
     (``_apply_block``)."""
     aux_total = None
     new_seg_caches = []
+    block = remat(_apply_block, rt)
     for si, (btype, n, _) in enumerate(segments(cfg)):
         p_seg = params["segments"][si]
         c_seg = cache["segments"][si] if cache is not None else None
         ys = []
         for i in range(n):
             c_l = _layer(c_seg, i) if c_seg is not None else None
-            x, new_c, aux = _apply_block(_layer(p_seg, i), x, btype, cfg,
-                                         rt, positions, mode, c_l,
-                                         cache_pos, cache_idx, moe_inputs)
+            x, new_c, aux = block(_layer(p_seg, i), x, btype, cfg, rt,
+                                  positions, mode, c_l, cache_pos,
+                                  cache_idx, moe_inputs)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
             if mode == "prefill":

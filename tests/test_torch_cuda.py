@@ -1261,3 +1261,62 @@ def test_cuda_ecg_train_step_matches_cpu_with_tf32_left_on(cuda_device):
     for a, b in zip(leaves(pc), leaves(pp)):
         assert a.is_cuda and not a.requires_grad
         assert_close(a, b)
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A one-rank NCCL mesh (``make_host_mesh()``), torn down after."""
+    from repro_torch.launch import mesh
+    mesh.teardown()
+    yield mesh.make_host_mesh()
+    mesh.teardown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b-reduced",
+                                  "deepseek-v2-lite-16b"])
+def test_cuda_moe_sharded_on_one_nccl_rank_is_moe_apply(nccl_mesh, arch):
+    """``moe_apply_sharded`` over a one-rank NCCL mesh on the card, at a
+    reduced and at deepseek's full layer width (64 experts of 1408, two
+    shared): bitwise ``moe_apply`` (the all-reduce over one rank is a
+    copy), each through the ``moe_gmm`` kernel once."""
+    from repro_torch.models import moe
+
+    cfg = get_config(arch)
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = moe.init_moe(gen, cfg, torch.float32, dev)
+    x = 0.1 * torch.randn((2, 64, cfg.d_model), generator=gen, device=dev)
+    before = kgmm.launches.value
+    with torch.no_grad():
+        y1, a1 = moe.moe_apply(p, x, cfg)
+        y2, a2 = moe.moe_apply_sharded(p, x, cfg, nccl_mesh)
+    assert kgmm.launches.value == before + 2
+    assert y2.is_cuda and torch.equal(y1, y2) and torch.equal(a1, a2)
+
+
+@pytest.mark.cuda
+def test_cuda_smollm_train_step_with_and_without_remat(cuda_device):
+    """One smollm-360m-reduced train step on the card from the same
+    params with and without ``remat``: the same loss and params, bitwise,
+    and no kernel launched."""
+    from repro_torch.models.ecg_resnext import leaves
+    from repro_torch.training.data import lm_batches
+    from repro_torch.training.optimizer import AdamW, constant_schedule
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_config("smollm-360m-reduced")
+    params = get_model(cfg).init(torch.Generator(device=cuda_device)
+                                 .manual_seed(0), cfg, RuntimeOptions(),
+                                 cuda_device)
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in next(lm_batches(cfg.vocab_size, 4, 32)).items()}
+    opt = AdamW(lr=constant_schedule(3e-4))
+    counters = list(_LAUNCHES.values())
+    before = [c.value for c in counters]
+    out = {r: make_train_step(cfg, RuntimeOptions(remat=r), opt)(
+        params, opt.init(params), batch) for r in (False, True)}
+    assert [c.value for c in counters] == before
+    assert torch.equal(out[False][2], out[True][2])
+    assert all(torch.equal(a, b) for a, b in zip(leaves(out[False][0]),
+                                                 leaves(out[True][0])))

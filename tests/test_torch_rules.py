@@ -3,10 +3,14 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   anything of the JAX package (``repro``);
 * the kernel modules, the LM paths' modules (dense, MoE, SSM, hybrid,
-  enc-dec), the
+  enc-dec, and the mesh tools the sharded MoE runs over), the
   training path's modules and ``chip_smoke.py`` hold no ``try``:
   nothing catches a kernel build or launch to fall back to the plain
-  version;
+  version.  ``launch/dryrun.py`` and ``launch/roofline.py`` stay off
+  that list: as the reference's, their ``main`` catches a failed
+  (arch, shape) combination, reports it and goes on, then exits 1, and
+  a dry run tears its fake process group down in a ``finally``; they
+  run the plain versions on fake tensors and launch no kernel;
 * an entry point built without ``device=`` runs on the card, so it
   raises when CUDA is absent;
 * a CPU tensor handed to a kernel wrapper raises instead of running the
@@ -22,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.ecg_zoo import zoo_specs
 from repro_torch.device import resolve_device
@@ -34,7 +39,7 @@ from repro_torch.kernels import moe_gmm as kgmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd as kssd
 from repro_torch.kernels import window_gather as kgather
-from repro_torch.launch import serve
+from repro_torch.launch import mesh, serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models.ecg_resnext import init_ecg
@@ -59,7 +64,8 @@ LM_PATH = [PORT / f for f in (
     "configs/phi35_moe_42b.py", "configs/zamba2_7b.py",
     "configs/seamless_m4t_medium.py", "kernels/ops.py", "kernels/ref.py",
     "kernels/flash_attention.py", "kernels/ssd.py", "kernels/moe_gmm.py",
-    "kernels/conv1d_stripe.py")]
+    "kernels/conv1d_stripe.py", "launch/mesh.py", "launch/sharding.py",
+    "launch/specs.py", "configs/shapes.py")]
 # the training path: the train loops, the optimizer, checkpoints, data,
 # the launcher, the zoo builder and its example
 TRAIN_PATH = [PORT / f for f in (
@@ -121,6 +127,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         ta.agg_init(2, 3, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_host_mesh()
+    assert not dist.is_initialized()
     cfg = get_config("qwen3-4b-reduced")
     for arch in ("qwen3-4b-reduced", "mamba2-2.7b-reduced",
                  "phi3.5-moe-42b-a6.6b-reduced", "zamba2-7b-reduced",

@@ -19,6 +19,8 @@ import dataclasses
 import glob
 import json
 import os
+import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -40,6 +42,7 @@ from repro.training import optimizer as jopt
 from repro.training import train_loop as jtl
 from repro_torch.configs.ecg_zoo import zoo_specs
 from repro_torch.configs.registry import get_config
+from repro_torch.launch import dryrun
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import ecg_resnext as tecg
 from repro_torch.models import transformer
@@ -585,7 +588,28 @@ def test_launch_train_runs_and_checkpoint_restores(tmp_path, capsys):
         "n_arrays": len(list(leaves(init)))}
 
 
-def test_launch_train_dry_run_names_roadmap_item_14(capsys):
-    with pytest.raises(SystemExit):
-        tlaunch.main(["--dry-run"])
-    assert "ROADMAP item 14" in capsys.readouterr().err
+def test_launch_train_dry_run_names_roadmap_item_14(monkeypatch, capsys):
+    """``--dry-run`` (ROADMAP item 14, ported) runs the production-mesh
+    dry run of the full-size arch at train_4k on both meshes, as the
+    reference's launcher does, and exits with its code.  The command the
+    launcher would start runs here, in this process, with each
+    combination's ``dryrun_one`` recorded (the dry runs themselves are
+    held in ``test_torch_dryrun.py``)."""
+    cmds, runs = [], []
+
+    def call(cmd):
+        cmds.append(cmd)
+        return dryrun.main(cmd[3:])
+
+    def one(arch, shape, multi_pod, **kw):
+        runs.append((arch, shape, multi_pod))
+        return {"arch": arch, "shape": shape}
+    monkeypatch.setattr(subprocess, "call", call)
+    monkeypatch.setattr(dryrun, "dryrun_one", one)
+    assert tlaunch.main(["--arch", "smollm-360m-reduced", "--dry-run"]) == 0
+    assert cmds == [[sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", "smollm-360m", "--shape", "train_4k",
+                     "--both-meshes"]]
+    assert runs == [("smollm-360m", "train_4k", False),
+                    ("smollm-360m", "train_4k", True)]
+    assert "2 OK, 0 failed" in capsys.readouterr().out
