@@ -131,7 +131,25 @@ nothing of JAX or of the JAX package (``src/repro``).  Phases:
    qwen3-4b and of deepseek-v2-lite-16b with ``moe_impl`` gspmd and
    shard_map at train_4k on the 16x16 mesh, the roofline of qwen3-4b x
    train_4k and ``dryrun_ensemble``, each record with its seconds;
-12. a ``kernels`` JSON line (the seven ported kernels), and the last line
+12. the system's entry points (``repro_torch/examples``): (a) as a user
+   runs them, ``serve_icu.main(["--beds", "64", "--adaptive",
+   "--tiered", "--chaos", "--metrics"])`` at the reference's defaults
+   (the 12-member reduced zoo, 3-s windows, restored from the committed
+   cache, its costs measured on the card), then ``quickstart.main()``;
+   (b) phase 8 (b)'s 60-member full zoo (30-s windows, its
+   card-measured costs and profilers) through ``serve_icu``'s
+   fused-server, device-ingest and chaos-drill sections and the hot
+   swap, then its DES report and the static, adaptive and tiered loops
+   at a census of 64 -> 192 -> 64.  Held in both: every bed served by
+   the fused and ingest flows, the chaos drill's served + shed ==
+   submitted with no thread left, the hot swap's 0 dropped, the scrape's
+   ``holmes_served_total`` equal to the server's count, and each live
+   flow's ``window_gather`` and ``conv1d_stripe_stacked`` launches, from
+   counters reset just before it, equal to its flushes times the
+   service's launches a flush (every other section launches nothing);
+   in (b) the ingest flow's scores within 1e-4 of the plain versions on
+   the same windows;
+13. a ``kernels`` JSON line (the seven ported kernels), and the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``ssd`` (y and hT) and ``moe_gmm`` against their
@@ -147,7 +165,9 @@ device time (a CUDA graph) and host time beside the event-timed figure
 (``--only=flush``: phase 3 alone, its flush times and host stages;
 ``--only=mla``: phase 7 alone; ``--only=train``: phase 8 alone;
 ``--only=hybrid,encdec``: phases 9 and 10 alone; ``--only=mesh``: phase
-11 alone) and prints no result line.
+11 alone; ``--only=examples``: phase 12 alone, the full zoo restored
+from phase 8's cache under ``build/``, or built there) and prints no
+result line.
 ``--profile`` adds one traced flush at P=8 and at P=64 after phase 3 and
 one traced prefill and decode step of qwen3-4b, mamba2-2.7b, phi3.5-moe,
 deepseek-v2-lite (and one absorbed step), zamba2-7b and
@@ -174,6 +194,11 @@ TOL = 1e-4                  # rtol = atol for float compute (testing.py)
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 FP32_FLOP_S = 67e12         # H100 SXM fp32 outside the tensor cores
 TF32_FLOP_S = 495e12        # H100 SXM TF32 on the tensor cores, dense
+# phase 8 (b)'s full zoo: 20 steps a member on a short 30-s cohort, in a
+# cache of the script's own (phase 12 reuses it)
+ZOO_COHORT = dict(n_patients=12, clips=4, seconds=30)
+ZOO_STEPS = 20
+ZOO_CACHE = ROOT / "build" / "zoo_cache_torch_smoke"
 # the LM phases' traffic: batch 4, a 2048-token prompt, 32 new tokens
 SERVED = ["--batch", "4", "--prompt-len", "2048", "--new-tokens", "32",
           "--seed", str(SEED)]
@@ -3188,7 +3213,13 @@ def _remat_step(torch, np, cfg, dev, card):
     return rec
 
 
-def phase_training(torch, np, record, card):
+def _full_zoo_kw(dev):
+    """``build_zoo``'s arguments for phase 8 (b)'s full zoo."""
+    return dict(reduced=False, steps=ZOO_STEPS, seed=SEED, verbose=False,
+                cache=ZOO_CACHE, device=dev, **ZOO_COHORT)
+
+
+def phase_training(torch, np, record, card, keep=None):
     """Training at full width (phase 8), with cuDNN's and cuBLAS's TF32
     switched ON for the process, as a standalone launcher finds them:
     every train step must turn them off itself (``Fp32Step``) and put
@@ -3211,7 +3242,8 @@ def phase_training(torch, np, record, card):
     launcher's argv; (d) the kernel guard.  The training path launches
     no kernel: the counters stay at 0 through (a) and (c), and (b)'s
     launches are its predictions' and cost measurements'
-    ``conv1d_stripe`` calls, counted exactly."""
+    ``conv1d_stripe`` calls, counted exactly.  ``keep`` (a dict), when
+    given, receives (b)'s zoo and extras for phase 12."""
     import shutil
 
     from repro_torch.benchmarks import zoo_setup
@@ -3261,7 +3293,7 @@ def phase_training(torch, np, record, card):
     out = {}
 
     # ---- (a) the largest member, 3 steps at batch 32
-    cohort = dict(n_patients=12, clips=4, seconds=30)
+    cohort = ZOO_COHORT
     data = make_icu_dataset(cohort["n_patients"], cohort["clips"],
                             seed=SEED, seconds=cohort["seconds"])
     train, _ = split_by_patient(data, holdout=4)
@@ -3342,10 +3374,8 @@ def phase_training(torch, np, record, card):
           flush=True)
 
     # ---- (b) the full zoo on the card, into a fresh cache
-    cache = ROOT / "build" / "zoo_cache_torch_smoke"
-    shutil.rmtree(cache, ignore_errors=True)
-    zoo_kw = dict(reduced=False, steps=20, seed=SEED, verbose=False,
-                  cache=cache, device=dev, **cohort)
+    shutil.rmtree(ZOO_CACHE, ignore_errors=True)
+    zoo_kw = _full_zoo_kw(dev)
     reset()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -3405,7 +3435,7 @@ def phase_training(torch, np, record, card):
     aucs = [p.val_auc for p in zoo.profiles]
     steps_s = {s.name: 20 / extras["trained"][s.name] for s in (small, big)}
     out["zoo"] = {
-        "members": len(specs), "cohort": cohort, "steps": 20,
+        "members": len(specs), "cohort": cohort, "steps": ZOO_STEPS,
         "n_val": n_val, "build_s": build_s, "restore_s": restore_s,
         "peak_bytes": peak, "launches": build_launches,
         "restore_launches": restore_launches,
@@ -3416,6 +3446,8 @@ def phase_training(torch, np, record, card):
                      "accuracy": res.accuracy, "latency_s": res.latency,
                      "seconds": compose_s},
         "measured_costs_s": extras["measured_costs"]}
+    if keep is not None:
+        keep.update(zoo=zoo, extras=extras)
     print(f"  (b) full zoo on {card} ({len(specs)} members, 20 steps at "
           f"batch 32 on "
           f"{len(extras['train']['label'])} clips): build {build_s:.1f} s "
@@ -3502,6 +3534,284 @@ def phase_training(torch, np, record, card):
     return out
 
 
+def _conv_plan(np, svc, kconv):
+    """``conv1d_stripe_stacked`` launches of one flush of ``svc`` (read
+    from the counter around a P=1 flush) and of each bucket pass, in
+    the service's bucket order (the stem and 3 a block of the bucket's
+    architecture); the two must agree."""
+    from repro_torch.configs.ecg_zoo import bucket_zoo
+
+    specs = [m.spec for m in svc.members]
+    per_bucket = [1 + 3 * specs[idx[0]].blocks
+                  for idx in bucket_zoo(specs).values()]
+    L = max(s.input_len for s in specs)
+    before = kconv.launches_stacked.value
+    svc.predict_batch([{"ecg": np.zeros((3, L), np.float32)}])
+    per_flush = kconv.launches_stacked.value - before
+    if per_flush != sum(per_bucket) or len(per_bucket) != svc.n_buckets:
+        raise AssertionError(f"a flush launched {per_flush} convs; its "
+                             f"{svc.n_buckets} buckets count {per_bucket}")
+    return per_flush, per_bucket
+
+
+def _flow_launches(np, name, out, svc, launches, kconv):
+    """Hold each live flow's launches, read from the counters reset just
+    before it, to the flushes it made times the service's launches a
+    flush (a ref flush: one ``window_gather`` a window length); the
+    ingest flow adds its gather warm-up, the chaos drill counts the
+    bucket passes its guard let through (a loss can end a flush part
+    way), the hot swap every staged service's served and warm-up
+    flushes.  Every other section launches nothing."""
+    zero = dict.fromkeys(launches[name], 0)
+    if name in ("fused", "ingest", "chaos"):
+        per_flush, per_bucket = _conv_plan(np, svc, kconv)
+    f = out.get(name)
+    want = dict(zero)
+    if name == "fused":
+        want["conv1d_stripe_stacked"] = f["flushes"] * per_flush
+    elif name == "ingest":
+        want["window_gather"] = f["flushes"] * f["gathers_per_flush"] \
+            + f["warmup_gathers"]
+        want["conv1d_stripe_stacked"] = f["flushes"] * per_flush
+    elif name == "chaos":
+        want["conv1d_stripe_stacked"] = sum(
+            n * c for n, c in zip(f["passes"], per_bucket))
+    elif name == "hot_swap":
+        want["conv1d_stripe_stacked"] = sum(
+            (st["flushes"] + st["warmup_flushes"])
+            * _conv_plan(np, st["service"], kconv)[0] for st in f["staged"])
+    if launches[name] != want:
+        raise AssertionError(f"{name}: launches {launches[name]}, want "
+                             f"{want}")
+    if name in ("fused", "ingest", "chaos", "hot_swap") \
+            and not want["conv1d_stripe_stacked"]:
+        raise AssertionError(f"{name} launched no conv")
+    return want
+
+
+def _hold_served(np, where, out):
+    """The entry points' checks on what a user sees: the fused and
+    ingest flows serve every bed, the chaos drill conserves every query
+    and leaves no thread, the hot swap drops nothing, and the scrape
+    counts what the server served."""
+    for flow in ("fused", "ingest"):
+        f = out[flow]
+        if (f["served"], f["failed"], f["leaked"]) \
+                != (f["submitted"], 0, []):
+            raise AssertionError(f"{where} {flow}: served {f['served']} of "
+                                 f"{f['submitted']}, failed {f['failed']}, "
+                                 f"leaked {f['leaked']}")
+    c = out["chaos"]
+    if not (c["conservation"] and c["served"] + c["shed"]
+            == c["submitted"] and not c["leaked"]):
+        raise AssertionError(f"{where} chaos drill: {c['served']} served + "
+                             f"{c['shed']} shed of {c['submitted']}, "
+                             f"leaked {c['leaked']}")
+    sw = out["hot_swap"]
+    if (sw["dropped"], sw["served"]) != (0, sw["submitted"]) \
+            or sw["swaps"] != 2:
+        raise AssertionError(f"{where} hot swap: {sw['served']} of "
+                             f"{sw['submitted']}, {sw['dropped']} dropped, "
+                             f"{sw['swaps']} swaps")
+    m = out.get("metrics")
+    if m is not None and not (m["n_series"] > 0 and m["served_total"]
+                              == out["fused"]["served"]):
+        raise AssertionError(f"{where} /metrics: {m['n_series']} series, "
+                             f"holmes_served_total {m['served_total']} vs "
+                             f"{out['fused']['served']} served")
+
+
+def _scalars(d):
+    """The JSON-able numbers of a section's result."""
+    return {k: v for k, v in d.items()
+            if isinstance(v, (bool, int, float, str)) or v is None
+            or k in ("passes", "leaked", "recoveries", "selected", "names")}
+
+
+def phase_examples(torch, np, record, card, keep=None):
+    """Phase 12: the system's entry points.  (a) As a user runs them:
+    ``serve_icu.main(["--beds", "64", "--adaptive", "--tiered",
+    "--chaos", "--metrics"])`` at the reference's defaults (the
+    12-member reduced zoo, 3-s windows, restored from the committed
+    cache, its costs measured on the card), each section's launches
+    counted from counters reset just before it, then
+    ``quickstart.main()``.  (b) At full width: phase 8 (b)'s 60-member
+    zoo (``keep``; restored from its cache, or built, when the phase
+    runs alone), its card-measured costs and profilers: the
+    fused-server, device-ingest and chaos-drill sections and the hot
+    swap over it, with (a)'s checks and the ingest flow's scores held
+    to the plain versions on the same windows, then the DES report and
+    the static, adaptive and tiered loops at a census of 64 -> 192 ->
+    64."""
+    import contextlib
+
+    from repro_torch.benchmarks import zoo_setup
+    from repro_torch.examples import quickstart, serve_icu
+    from repro_torch.kernels import conv1d_stripe as kconv
+    from repro_torch.kernels import window_gather as kgather
+    from repro_torch.serving.pipeline import EnsembleService
+
+    dev = torch.device("cuda:0")
+    counters = (kgather.launches, kconv.launches_stacked, kconv.launches)
+    t_phase = time.perf_counter()
+    result = {}
+
+    def counted(launches):
+        @contextlib.contextmanager
+        def observe(name):
+            for c in counters:
+                c.reset()
+            yield
+            torch.cuda.synchronize()
+            launches[name] = {c.name: c.value for c in counters}
+        return observe
+
+    def flows_line(out):
+        return "; ".join(
+            f"{k} p50 {1e3 * out[k]['p50_s']:.1f} / p95 "
+            f"{1e3 * out[k]['p95_s']:.1f} ms" for k in ("fused", "ingest",
+                                                         "chaos"))
+
+    # ---- (a) as a user runs it
+    launches_a = {}
+    t0 = time.perf_counter()
+    out = serve_icu.main(["--beds", "64", "--adaptive", "--tiered",
+                          "--chaos", "--metrics"],
+                         observe=counted(launches_a))
+    main_s = time.perf_counter() - t0
+    _hold_served(np, "(a)", out)
+    svc = out["service"]
+    for name in launches_a:
+        _flow_launches(np, name, out, svc, launches_a, kconv)
+    t0 = time.perf_counter()
+    qs = quickstart.main([])
+    qs_s = time.perf_counter() - t0
+    qs_scores = np.array([r.score for r in qs["records"]])
+    if len(qs_scores) != 6 or not np.all((qs_scores >= 0)
+                                         & (qs_scores <= 1)):
+        raise AssertionError(f"quickstart served {qs_scores}")
+    c = out["chaos"]
+    result["a"] = {
+        "argv": "--beds 64 --adaptive --tiered --chaos --metrics",
+        "seconds": main_s, "quickstart_seconds": qs_s,
+        "launches": launches_a,
+        **{k: _scalars(out[k]) for k in ("compose", "des", "fused",
+                                          "metrics", "ingest", "chaos")},
+        "hot_swap": _scalars(out["hot_swap"]),
+        "adaptive": {arm: {k: out["adaptive"][arm][k] for k in (
+            "violation_rate", "p99_final_spike_s", "n_recomposes")}
+            for arm in ("static", "adaptive")},
+        "quickstart": {"chosen": qs["chosen"], "p95_s": qs["p95_s"],
+                       "scores": qs_scores.tolist()}}
+    print(f"  (a) serve_icu --beds 64 --adaptive --tiered --chaos --metrics "
+          f"on {card} in {main_s:.1f} s ({len(svc.members)} members, "
+          f"{svc.n_buckets} buckets): {flows_line(out)}; chaos "
+          f"{c['served']} served, {c['shed']} shed, {c['failed']} NaN-failed "
+          f"of {c['submitted']}; hot swap {out['hot_swap']['served']}/"
+          f"{out['hot_swap']['submitted']}, 0 dropped; /metrics "
+          f"{out['metrics']['n_series']} series; launches "
+          f"{ {k: v for k, v in launches_a.items() if any(v.values())} } "
+          f"as counted; quickstart in {qs_s:.1f} s, p95 "
+          f"{1e3 * qs['p95_s']:.1f} ms", flush=True)
+
+    # ---- (b) the full zoo
+    if keep is None or "zoo" not in keep:
+        t0 = time.perf_counter()
+        keep = dict(zip(("zoo", "extras"),
+                        zoo_setup.build_zoo(**_full_zoo_kw(dev))))
+        print(f"  (b) full zoo from {ZOO_CACHE.relative_to(ROOT)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    zoo, extras = keep["zoo"], keep["extras"]
+    costs = extras["measured_costs"]
+    t_b = time.perf_counter()
+    comp = serve_icu.compose_section(zoo, extras, 64, 2)
+    members = serve_icu.members_of(zoo, extras, comp["selected"])
+    svc = EnsembleService(members, device=dev)
+    svc.warmup(batch_sizes=serve_icu.WARMUP_BATCH_SIZES)
+    rng = np.random.default_rng(SEED)
+    launches_b = {}
+    observe = counted(launches_b)
+    full = {"compose": comp}
+    with observe("fused"):
+        full["fused"] = serve_icu.serve_fused(svc, 16, 2, rng)
+    with observe("ingest"):
+        full["ingest"] = serve_icu.serve_ingest(svc, 16, 2, rng)
+    with observe("chaos"):
+        full["chaos"] = serve_icu.chaos_drill(svc, 16, rng)
+    with observe("hot_swap"):
+        full["hot_swap"] = serve_icu.hot_swap_demo(
+            serve_icu.members_of(zoo, extras, range(len(zoo))),
+            comp["result"].b_star, costs, 16, 2, dev)
+    _hold_served(np, "(b)", full)
+    for name in launches_b:
+        _flow_launches(np, name, full, svc, launches_b, kconv)
+    ing = full["ingest"]
+    beds = sorted(ing["scores"])
+    plain = EnsembleService(members, impl="torch", device=dev)
+    want = np.array(plain.predict_batch(
+        [{"ecg": ing["windows"][b]} for b in beds]))
+    got = np.array([ing["scores"][b] for b in beds])
+    ingest_err = float(np.abs(got - want).max())
+    if len(beds) != 16 or not np.allclose(got, want, rtol=TOL, atol=TOL):
+        raise AssertionError(f"(b) ingest scores vs plain: {ingest_err} "
+                             f"over beds {beds}")
+    full["des"] = serve_icu.des_report(comp["costs"], 64, 2, 3.0)
+    full["adaptive"] = serve_icu.adaptive_demo(
+        zoo, costs, comp["f_a"], comp["budget_s"], 64, 2)
+    full["tiered"] = serve_icu.tiered_demo(
+        zoo, costs, comp["f_a"], comp["budget_s"], 64, 2)
+    for arm in ("static", "adaptive"):
+        r = full["adaptive"][arm]
+        if r["born_total"] != r["served_total"] + r["final_backlog"]:
+            raise AssertionError(f"(b) {arm} arm does not conserve: {r}")
+    td = full["tiered"]
+    if td["per_tier_served_sum"] != td["served_total"]:
+        raise AssertionError(f"(b) tiered: {td['per_tier_served_sum']} vs "
+                             f"{td['served_total']}")
+    b_s = time.perf_counter() - t_b
+    st, ad, c = full["adaptive"]["static"], full["adaptive"]["adaptive"], \
+        full["chaos"]
+    crit = list(td["tier_fracs"])[-1]
+    result["b"] = {
+        "members": len(zoo), "served_members": len(members),
+        "buckets": svc.n_buckets, "seconds": b_s,
+        "launches": launches_b, "ingest_vs_plain_max_abs_err": ingest_err,
+        **{k: _scalars(full[k]) for k in ("compose", "fused", "ingest",
+                                          "chaos", "des")},
+        "hot_swap": _scalars(full["hot_swap"]),
+        "adaptive": {arm: {k: full["adaptive"][arm][k] for k in (
+            "violation_rate", "p99_final_spike_s", "n_recomposes",
+            "actions")} for arm in ("static", "adaptive")},
+        "tiered": {"critical_violation_rate":
+                   td["per_tier"][crit]["violation_rate"],
+                   "violation_by_tier": {t: v["violation_rate"] for t, v
+                                         in td["per_tier"].items()},
+                   "actions": td["actions"]}}
+    print(f"  (b) full zoo on {card} ({len(zoo)} members, {len(members)} "
+          f"served in {svc.n_buckets} buckets, budget "
+          f"{1e3 * comp['budget_s']:.1f} ms): {flows_line(full)}; chaos "
+          f"{c['served']} served, {c['shed']} shed, {c['failed']} NaN-failed "
+          f"of {c['submitted']}; hot swap {full['hot_swap']['served']}/"
+          f"{full['hot_swap']['submitted']}, 0 dropped; ingest vs plain "
+          f"{ingest_err:.3g}; DES p95 {1e3 * full['des']['p95_s']:.1f} ms; "
+          f"census 64 -> 192 -> 64: static viol "
+          f"{st['violation_rate']:.3f} p99@spike "
+          f"{1e3 * st['p99_final_spike_s']:.1f} ms, adaptive viol "
+          f"{ad['violation_rate']:.3f} p99@spike "
+          f"{1e3 * ad['p99_final_spike_s']:.1f} ms, {ad['n_recomposes']} "
+          f"recomposes; tiered critical viol "
+          f"{td['per_tier'][crit]['violation_rate']:.3f}; launches "
+          f"{launches_b} as counted; {b_s:.1f} s", flush=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    result["launches"] = {
+        k: sum(v[k] for part in (launches_a, launches_b)
+               for v in part.values())
+        for k in ("window_gather", "conv1d_stripe_stacked")}
+    print(f"  entry points: phase {result['seconds']:.1f} s", flush=True)
+    record["examples"] = result
+    return result
+
+
 def phase_small_reference(torch, np):
     """The reduced zoo at 1-s windows on the card against the same
     service on the CPU (plain versions): the scores must agree."""
@@ -3533,7 +3843,8 @@ def phase_only(torch, np, F, specs, record, card, names,
     3's zoo (built once, so ``--only=control,control`` repeats the
     drills), ``mla``: phase 7 alone, ``train``: phase 8
     alone, ``hybrid`` or ``encdec``: phase 9 or 10 alone (traced with
-    ``--profile``), ``mesh``: phase 11 alone, its records in
+    ``--profile``), ``mesh``: phase 11 alone, ``examples``: phase 12
+    alone (the full zoo from phase 8's cache, or built), its records in
     ``chiprun_out/chip_smoke_only.json``; no result line."""
     main_ctx = []
 
@@ -3552,6 +3863,7 @@ def phase_only(torch, np, F, specs, record, card, names,
               "ssd": lambda: phase_ssd(torch, record),
               "gmm": lambda: phase_gmm(torch, record),
               "train": lambda: phase_training(torch, np, record, card),
+              "examples": lambda: phase_examples(torch, np, record, card),
               "hybrid": lambda: phase_hybrid(torch, np, record, card,
                                              profile),
               "mesh": lambda: phase_mesh(torch, record, card),
@@ -3720,7 +4032,8 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     print("phase 8: training (full ECG zoo; smollm-360m)", flush=True)
-    training = phase_training(torch, np, record, card)
+    zoo_ctx = {}
+    training = phase_training(torch, np, record, card, keep=zoo_ctx)
 
     torch.cuda.empty_cache()
     print("phase 9: hybrid serving path (zamba2-7b, full width and depth)",
@@ -3742,6 +4055,11 @@ def main() -> int:
     print("phase 11: mesh tools (production-mesh dry runs, roofline, "
           "ensemble; fake backend, on the CPU)", flush=True)
     phase_mesh(torch, record, card)
+
+    print("phase 12: the entry points (serve_icu with every switch, "
+          "quickstart; the full zoo's flows and control loops)", flush=True)
+    examples = phase_examples(torch, np, record, card, keep=zoo_ctx)
+    del zoo_ctx
 
     def conv_row(name, key, replaces):
         t = conv[key]
@@ -3767,7 +4085,9 @@ def main() -> int:
         "placement (phase 3c, 4 lanes: flushes P=8, P=64 and a tick)":
             placed["launches"]["conv1d_stripe_stacked"],
         "control plane (phase 3d)":
-            control["launches"]["conv1d_stripe_stacked"]}
+            control["launches"]["conv1d_stripe_stacked"],
+        "entry points (phase 12: serve_icu's flows, reduced and full zoo)":
+            examples["launches"]["conv1d_stripe_stacked"]}
     conv_m1 = conv_row("conv1d_stripe", ("conv1d_stripe", 1),
                        "src/repro/kernels/conv1d_stripe.py:62")
     conv_m1["max_abs_err"] = max(conv_m1["max_abs_err"],
@@ -3804,7 +4124,9 @@ def main() -> int:
                  slots["launches"]["window_gather"],
              "placement (phase 3c, 4 lanes: flushes P=8, P=64 and a tick)":
                  placed["launches"]["window_gather"],
-             "control plane (phase 3d)": control["launches"]["window_gather"]},
+             "control plane (phase 3d)": control["launches"]["window_gather"],
+             "entry points (phase 12: serve_icu's flows, reduced and full "
+             "zoo)": examples["launches"]["window_gather"]},
          "device_ms": g["device_ms"], "host_ms": g["host_ms"],
          "shape": "ECG ring: [64, 3, 16384], P=64, L=7500",
          "vitals": {k: gather["vitals"][k] for k in (

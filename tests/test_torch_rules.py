@@ -4,7 +4,8 @@
   anything of the JAX package (``repro``);
 * the kernel modules, the LM paths' modules (dense, MoE, SSM, hybrid,
   enc-dec, and the mesh tools the sharded MoE runs over), the
-  training path's modules and ``chip_smoke.py`` hold no ``try``:
+  training path's modules, the entry points (``examples/``) with the
+  benchmark functions they call, and ``chip_smoke.py`` hold no ``try``:
   nothing catches a kernel build or launch to fall back to the plain
   version.  ``launch/dryrun.py`` and ``launch/roofline.py`` stay off
   that list: as the reference's, their ``main`` catches a failed
@@ -12,7 +13,8 @@
   a dry run tears its fake process group down in a ``finally``; they
   run the plain versions on fake tensors and launch no kernel;
 * an entry point built without ``device=`` runs on the card, so it
-  raises when CUDA is absent;
+  raises when CUDA is absent; the example mains raise without
+  ``--device cpu`` before any zoo build;
 * a CPU tensor handed to a kernel wrapper raises instead of running the
   plain version;
 * a kernel wrapper handed an input that requires grad, with grad on,
@@ -28,10 +30,12 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from repro_torch.benchmarks import adaptive_bench
 from repro_torch.configs.ecg_zoo import zoo_specs
 from repro_torch.device import resolve_device
 from repro_torch.configs.registry import get_config
 from repro_torch.benchmarks import zoo_setup
+from repro_torch.examples import compose_ensemble, quickstart, serve_icu
 from repro_torch.kernels import conv1d_stripe as kconv
 from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
@@ -72,6 +76,11 @@ TRAIN_PATH = [PORT / f for f in (
     "training/__init__.py", "training/data.py", "training/optimizer.py",
     "training/checkpoint.py", "training/train_loop.py", "launch/train.py",
     "benchmarks/zoo_setup.py", "examples/train_ecg_zoo.py")]
+# the system's entry points and the benchmark functions they call
+ENTRY_PATH = [PORT / f for f in (
+    "examples/serve_icu.py", "examples/quickstart.py",
+    "examples/compose_ensemble.py", "benchmarks/adaptive_bench.py",
+    "benchmarks/composition.py")]
 
 
 def _imports(path):
@@ -93,11 +102,12 @@ def test_port_imports_no_jax_and_no_reference_package(path):
 def test_lm_path_modules_are_checked():
     assert set(LM_PATH) <= set(PORT_FILES)
     assert set(TRAIN_PATH) <= set(PORT_FILES)
+    assert set(ENTRY_PATH) <= set(PORT_FILES)
 
 
 def test_no_try_around_kernels_or_in_chip_smoke():
     files = sorted((PORT / "kernels").glob("*.py")) + LM_PATH \
-        + TRAIN_PATH + [ROOT / "chip_smoke.py"]
+        + TRAIN_PATH + ENTRY_PATH + [ROOT / "chip_smoke.py"]
     for path in files:
         tree = ast.parse(path.read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), \
@@ -158,6 +168,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                             widths=(8,), blocks=(2,), verbose=False)
     assert resolve_device("cpu") == torch.device("cpu")
     assert tp.EnsembleService([_member()], device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("mod", [serve_icu, quickstart, compose_ensemble],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_example_mains_raise_without_cuda_before_any_build(no_cuda, mod,
+                                                           monkeypatch):
+    """Without ``--device cpu`` an example resolves ``cuda:0`` first and
+    raises, before any zoo build or composition."""
+    built = []
+    monkeypatch.setattr(mod, "build_zoo", lambda *a, **k: built.append(a))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
+    assert not built
+
+
+def test_hot_swap_defaults_to_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        adaptive_bench.wallclock_hot_swap(n_queries=1, verbose=False)
 
 
 def test_resolve_device_names_cuda0_by_default(monkeypatch):
