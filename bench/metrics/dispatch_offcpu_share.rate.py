@@ -1,0 +1,6 @@
+"""``dispatch_offcpu_share``, read the same way, in a cell whose end-to-end metrics are
+``scores_per_s`` and ``setup_s`` alone (the cell's latency spreads
+too widely between runs to hold a bound)."""
+from bench.harness.cells import reader
+
+read = reader("dispatch_offcpu_share")

@@ -2097,11 +2097,11 @@ def phase_main(torch, np, specs, record, card, profile=False):
         torch.cuda.reset_peak_memory_stats(dev)
         ts, stages = [], []
         for _ in range(10):
-            with _spans.collect() as acc:      # the pipeline's own spans
+            with _spans.collect() as tree:     # the pipeline's own spans
                 t0 = time.perf_counter()
                 out = svc.predict_batch(refs[:P])
                 ts.append(time.perf_counter() - t0)
-            stages.append(dict(acc))
+            stages.append(dict(tree.stages))
         if len(out) != P or not np.all(np.isfinite(out)):
             raise AssertionError(f"P={P} flush: {out}")
         # host view of one flush: ring-gather launches (marshal), issuing
@@ -2535,11 +2535,11 @@ def phase_placement(torch, np, ctx, record, card):
             for P in (8, 64):
                 _pl._clock_start, _pl._clock_stop = \
                     host_clocks if e_ is None else clocks
-                with _spans.collect() as acc:
+                with _spans.collect() as tree:
                     t = time.perf_counter()
                     got = np.array(s_.predict_batch(refs[:P]))
                     lat[name][P].append(time.perf_counter() - t)
-                span[name][P].append(acc.get("dispatch", 0.0))
+                span[name][P].append(tree.stages.get("dispatch", 0.0))
                 same(name, exact, got, a["out"][P],
                      f"flush P={P} round {i}")
             if e_ is None:

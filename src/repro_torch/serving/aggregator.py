@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import spans as _spans
 
 
 # ------------------------------------------------- actor implementation
@@ -254,13 +255,21 @@ class DeviceIngest:
     Concurrency: ``lock`` serialises ring writes (with their ``fed``
     update), growth, and every reader's staleness guard plus gather
     launch (module docstring).
+
+    ``tracer`` (an ``obs.spans.SpanRecorder``): when set, each
+    ``ingest`` call is a ``holmes.ingest`` span tree, its thread CPU
+    time beside its wall time, with a ``holmes.ingest.lock`` child for
+    acquiring ``lock``, handed to ``tracer.record_ingest``.  Without
+    one the call pays one attribute test.
     """
 
     def __init__(self, modalities: List[ModalitySpec],
                  n_patients: int, window_seconds: float,
                  capacity_windows: float = 2.0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 tracer: Optional["_spans.SpanRecorder"] = None):
         self.device = resolve_device(device)
+        self.tracer = tracer
         self.lock = threading.Lock()
         self.modalities = {m.name: m for m in modalities}
         self.window = window_seconds
@@ -305,11 +314,22 @@ class DeviceIngest:
     def ingest(self, t: float, patient: int, modality: str,
                samples: np.ndarray) -> None:
         samples = np.atleast_2d(np.asarray(samples, np.float32))
-        with self.lock:
-            ingest_chunk(self.states[modality], patient, samples)
-            self.fed[modality][patient] += samples.shape[-1]
-            if self.window_start[patient] is None:
-                self.window_start[patient] = t
+        if self.tracer is None:
+            with self.lock:
+                self._write(t, patient, modality, samples)
+            return
+        with _spans.collect("ingest") as tree:
+            with _spans.held(self.lock, "ingest.lock"):
+                self._write(t, patient, modality, samples)
+        self.tracer.record_ingest(tree)
+
+    def _write(self, t: float, patient: int, modality: str,
+               samples: np.ndarray) -> None:
+        """The ring write and its accounting (call under ``lock``)."""
+        ingest_chunk(self.states[modality], patient, samples)
+        self.fed[modality][patient] += samples.shape[-1]
+        if self.window_start[patient] is None:
+            self.window_start[patient] = t
 
     def check_fresh(self, modality: str, refs: Sequence[DeviceWindowRef],
                     span: int) -> None:

@@ -445,16 +445,16 @@ class EnsembleService:
         # forward passes are batch-independent, so zero rows are inert
         Ppad = pow2_rung(P)
         t_marshal = time.perf_counter()
-        packs: Dict[int, np.ndarray] = {}
-        for L in sorted({b.spec.input_len for b in self._buckets}):
-            win = np.zeros((Ppad, ECG_LEADS, L), np.float32)
-            for p, w in enumerate(batch):
-                clip = np.asarray(w["ecg"], np.float32)[:, -L:]
-                win[p, :, L - clip.shape[-1]:] = clip
-            packs[L] = win
-        dev_wins, h2d = self._ship_packs(packs)
+        with _spans.span("flush.marshal"):
+            packs: Dict[int, np.ndarray] = {}
+            for L in sorted({b.spec.input_len for b in self._buckets}):
+                win = np.zeros((Ppad, ECG_LEADS, L), np.float32)
+                for p, w in enumerate(batch):
+                    clip = np.asarray(w["ecg"], np.float32)[:, -L:]
+                    win[p, :, L - clip.shape[-1]:] = clip
+                packs[L] = win
+            dev_wins, h2d = self._ship_packs(packs)
         marshal_s = time.perf_counter() - t_marshal
-        _spans.note("marshal", marshal_s)
         scores = self._flush(dev_wins, P)
         with self._count_lock:
             self.h2d_bytes += h2d
@@ -497,31 +497,32 @@ class EnsembleService:
         time runs from just before its guard to the end of its pass —
         the host clock on the CPU, where a pass has finished when its
         call returns, and a pair of CUDA events on the card, read after
-        the flush's sync."""
-        t_dispatch = time.perf_counter()
+        the flush's sync.  Spans: ``flush.dispatch`` with one
+        ``flush.bucket`` a pass, then ``flush.gather``."""
         guard = self.dispatch_guard
         buckets = self._buckets
         timed = self.placement is not None
         ys, marks = [], []
-        for b in buckets:
-            start = _clock_start(b.tdev) if timed else None
-            if guard is not None:
-                guard(b.device)
-            ys.append(self._bucket_pass(
-                b, dev_wins[(b.spec.input_len, b.tdev)]))
-            if timed:
-                marks.append(_clock_stop(b.tdev, start))
-        with self._count_lock:
-            self.dispatch_count += len(ys)
-        t_gather = time.perf_counter()
-        _spans.note("dispatch", t_gather - t_dispatch)
-        score_mat = self._retire(buckets, ys, P, t_gather)
+        with _spans.span("flush.dispatch"):
+            for b in buckets:
+                with _spans.span("flush.bucket"):
+                    start = _clock_start(b.tdev) if timed else None
+                    if guard is not None:
+                        guard(b.device)
+                    ys.append(self._bucket_pass(
+                        b, dev_wins[(b.spec.input_len, b.tdev)]))
+                    if timed:
+                        marks.append(_clock_stop(b.tdev, start))
+            with self._count_lock:
+                self.dispatch_count += len(ys)
+        with _spans.span("flush.gather"):
+            score_mat = self._retire(buckets, ys, P)
         for b, mark in zip(buckets, marks):
             self._record_retire(b, _clock_seconds(mark))
         return score_mat
 
     def _retire(self, buckets: Sequence[_Bucket], ys: List[torch.Tensor],
-                P: int, t_gather: float) -> np.ndarray:
+                P: int) -> np.ndarray:
         """Scores of every shard into the ``[M, P]`` host matrix: ONE
         device->host copy per distinct device (the sync)."""
         score_mat = np.zeros((len(self.members), P))
@@ -534,7 +535,6 @@ class EnsembleService:
             for b, _ in pairs:
                 score_mat[b.idx] = host[row:row + len(b.idx)]
                 row += len(b.idx)
-        _spans.note("gather", time.perf_counter() - t_gather)
         return score_mat
 
     # ------------------------------------------- live shard cost drift
@@ -624,19 +624,19 @@ class EnsembleService:
         P = len(batch)
         Ppad = pow2_rung(P)
         t_marshal = time.perf_counter()
-        lens = sorted({b.spec.input_len for b in self._buckets})
-        patients = [r.patient for r in batch] + [0] * (Ppad - P)
-        ends = [r.ends["ecg"] for r in batch] + [0] * (Ppad - P)
-        valid = [r.valid["ecg"] for r in batch] + [0] * (Ppad - P)
-        with ingest.lock:
-            buf = ingest.states["ecg"].buf
-            ingest.check_fresh("ecg", batch, max(lens, default=0))
-            packs = {L: gather_windows(buf, patients, ends, valid, L,
-                                       impl=self.impl) for L in lens}
-        h2d = 3 * 4 * Ppad * len(lens)        # the int32 index triples
-        dev_wins, _ = self._ship_packs(packs)   # D2D for other devices
+        with _spans.span("flush.marshal"):
+            lens = sorted({b.spec.input_len for b in self._buckets})
+            patients = [r.patient for r in batch] + [0] * (Ppad - P)
+            ends = [r.ends["ecg"] for r in batch] + [0] * (Ppad - P)
+            valid = [r.valid["ecg"] for r in batch] + [0] * (Ppad - P)
+            with _spans.held(ingest.lock, "flush.marshal.lock"):
+                buf = ingest.states["ecg"].buf
+                ingest.check_fresh("ecg", batch, max(lens, default=0))
+                packs = {L: gather_windows(buf, patients, ends, valid, L,
+                                           impl=self.impl) for L in lens}
+            h2d = 3 * 4 * Ppad * len(lens)    # the int32 index triples
+            dev_wins, _ = self._ship_packs(packs)   # D2D, other devices
         marshal_s = time.perf_counter() - t_marshal
-        _spans.note("marshal", marshal_s)
         scores = self._flush(dev_wins, P)
         with self._count_lock:
             self.h2d_bytes += h2d
@@ -650,7 +650,9 @@ class EnsembleService:
         the ECG path) and hand ``_combine`` plain dicts.  Without
         CPU-side models the refs pass through and nothing is read back.
         The low-rate ring has its own staleness guard: its small
-        capacity is overrun on a different clock than the ECG ring's."""
+        capacity is overrun on a different clock than the ECG ring's.
+        The span ``flush.side`` holds the lock's and the readback's
+        time."""
         if self.vitals_model is None \
                 or "vitals" not in batch[0].ingest.states:
             return batch
@@ -658,15 +660,16 @@ class EnsembleService:
         want = ingest.want["vitals"]
         Ppad = pow2_rung(len(batch))
         pad = [0] * (Ppad - len(batch))
-        with ingest.lock:
-            buf = ingest.states["vitals"].buf
-            ingest.check_fresh("vitals", batch, want)
-            win = gather_windows(
-                buf, [r.patient for r in batch] + pad,
-                [r.ends["vitals"] for r in batch] + pad,
-                [r.valid["vitals"] for r in batch] + pad, want,
-                impl=self.impl)
-        win = win.cpu().numpy()
+        with _spans.span("flush.side"):
+            with _spans.held(ingest.lock, "flush.side.lock"):
+                buf = ingest.states["vitals"].buf
+                ingest.check_fresh("vitals", batch, want)
+                win = gather_windows(
+                    buf, [r.patient for r in batch] + pad,
+                    [r.ends["vitals"] for r in batch] + pad,
+                    [r.valid["vitals"] for r in batch] + pad, want,
+                    impl=self.impl)
+            win = win.cpu().numpy()
         return [{**r.extra, "vitals": win[p]}
                 for p, r in enumerate(batch)]
 
@@ -691,27 +694,29 @@ class EnsembleService:
         t_marshal = time.perf_counter()
         guard = self.dispatch_guard
         buckets = self._buckets
-        for b in buckets:
-            if guard is not None:
-                guard(b.device)
-            L = b.spec.input_len
-            xs = np.zeros((len(b.idx), Ppad, L, 1), np.float32)
-            for j, lead in enumerate(b.leads):
-                for p, w in enumerate(batch):
-                    clip = np.asarray(w["ecg"])[lead, -L:]
-                    xs[j, p, L - clip.shape[-1]:, 0] = clip
-            h2d += xs.nbytes
-            ys.append(_bucket_scores(b, to_device(xs, b.tdev), self.impl))
-        marshal_s = time.perf_counter() - t_marshal
         # legacy interleaves marshal + dispatch per bucket; attribute
         # the whole pre-gather segment to marshal
-        _spans.note("marshal", marshal_s)
+        with _spans.span("flush.marshal"):
+            for b in buckets:
+                if guard is not None:
+                    guard(b.device)
+                L = b.spec.input_len
+                xs = np.zeros((len(b.idx), Ppad, L, 1), np.float32)
+                for j, lead in enumerate(b.leads):
+                    for p, w in enumerate(batch):
+                        clip = np.asarray(w["ecg"])[lead, -L:]
+                        xs[j, p, L - clip.shape[-1]:, 0] = clip
+                h2d += xs.nbytes
+                ys.append(_bucket_scores(b, to_device(xs, b.tdev),
+                                         self.impl))
+        marshal_s = time.perf_counter() - t_marshal
         with self._count_lock:
             self.dispatch_count += len(ys)
             self.h2d_bytes += h2d
             self.marshal_seconds += marshal_s
-        return self._combine(
-            self._retire(buckets, ys, P, time.perf_counter()), batch)
+        with _spans.span("flush.gather"):
+            score_mat = self._retire(buckets, ys, P)
+        return self._combine(score_mat, batch)
 
     def _predict_one_unfused(self, windows: Dict[str, np.ndarray]
                              ) -> float:
@@ -745,21 +750,23 @@ class EnsembleService:
         return item.get(name)
 
     def _combine(self, score_mat: np.ndarray, batch) -> List[float]:
-        """Per-patient Eq. 5 mean over zoo scores + CPU-side models."""
+        """Per-patient Eq. 5 mean over zoo scores + CPU-side models (the
+        span ``flush.combine``)."""
         out = []
-        for p, windows in enumerate(batch):
-            scores = list(score_mat[:, p]) if len(self.members) else []
-            if self.vitals_model is not None:
-                vit = self._side_input(windows, "vitals")
-                if vit is not None:
-                    scores.append(float(self.vitals_model.predict_proba(
-                        vit[None])[0]))
-            if self.labs_model is not None:
-                labs = self._side_input(windows, "labs")
-                if labs is not None:
-                    scores.append(float(self.labs_model.predict_proba(
-                        labs[None])[0]))
-            out.append(float(np.mean(scores)) if scores else 0.5)
+        with _spans.span("flush.combine"):
+            for p, windows in enumerate(batch):
+                scores = list(score_mat[:, p]) if len(self.members) else []
+                if self.vitals_model is not None:
+                    vit = self._side_input(windows, "vitals")
+                    if vit is not None:
+                        scores.append(float(
+                            self.vitals_model.predict_proba(vit[None])[0]))
+                if self.labs_model is not None:
+                    labs = self._side_input(windows, "labs")
+                    if labs is not None:
+                        scores.append(float(
+                            self.labs_model.predict_proba(labs[None])[0]))
+                out.append(float(np.mean(scores)) if scores else 0.5)
         return out
 
 
@@ -930,9 +937,9 @@ class StreamingPipeline:
         t0 = time.perf_counter()
         stages: Optional[Dict[str, float]] = None
         if self.trace_stages:
-            with _spans.collect() as acc:
+            with _spans.collect() as tree:
                 score = self._serve(windows, patient)
-            stages = dict(acc)
+            stages = dict(tree.stages)
         else:
             score = self._serve(windows, patient)
         wall = time.perf_counter() - t0

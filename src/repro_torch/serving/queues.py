@@ -72,18 +72,16 @@ class TimestampedQueue:
 
 @dataclasses.dataclass
 class MicroBatchStats:
+    """Items and flushes through a batcher.  The largest batch and the
+    summed hold time are not kept: nothing read them, and the hold sum
+    cost a pass over every flush's items; a query's coalesce time is
+    its span's ``coalesce_s`` (``obs.spans``)."""
     n_items: int = 0
     n_flushes: int = 0
-    max_batch_seen: int = 0
-    total_hold: float = 0.0       # sum of per-item time spent coalescing
 
     @property
     def mean_batch(self) -> float:
         return self.n_items / self.n_flushes if self.n_flushes else 0.0
-
-    @property
-    def mean_hold(self) -> float:
-        return self.total_hold / self.n_items if self.n_items else 0.0
 
 
 class MicroBatcher:
@@ -129,20 +127,15 @@ class MicroBatcher:
             return (len(self._q) >= self.max_batch
                     or now - self._q[0][0] >= self.max_wait)
 
-    def pop_batch(self, now: Optional[float] = None) -> List[Any]:
+    def pop_batch(self) -> List[Any]:
         """Pops up to ``max_batch`` items (FIFO) and records stats."""
-        now = self.clock() if now is None else now
         with self._lock:
             n = min(len(self._q), self.max_batch)
             if not n:
                 return []
-            taken = [self._q.popleft() for _ in range(n)]
             self.stats.n_items += n
             self.stats.n_flushes += 1
-            self.stats.max_batch_seen = max(self.stats.max_batch_seen, n)
-            self.stats.total_hold += sum(max(0.0, now - t)
-                                         for t, _ in taken)
-            return [item for _, item in taken]
+            return [self._q.popleft()[1] for _ in range(n)]
 
     def oldest(self) -> Optional[float]:
         """Timestamp of the oldest pending item (None when empty)."""
@@ -220,9 +213,8 @@ class KeyedMicroBatcher:
             return NO_LANE
         return min(due, key=lambda kv: (kv[1], str(kv[0])))[0]
 
-    def pop_batch(self, key: Any,
-                  now: Optional[float] = None) -> List[Any]:
-        return self.lane(key).pop_batch(now)
+    def pop_batch(self, key: Any) -> List[Any]:
+        return self.lane(key).pop_batch()
 
     @property
     def stats(self) -> MicroBatchStats:
@@ -239,9 +231,6 @@ class KeyedMicroBatcher:
             s = l.stats_snapshot()
             agg.n_items += s.n_items
             agg.n_flushes += s.n_flushes
-            agg.max_batch_seen = max(agg.max_batch_seen,
-                                     s.max_batch_seen)
-            agg.total_hold += s.total_hold
         return agg
 
     def lane_stats(self) -> "Dict[Any, MicroBatchStats]":

@@ -55,12 +55,26 @@ Fault tolerance:
   worker discards its late scores and exits, so every query is retired
   exactly once and ``drain()`` conservation holds through stalls.
 
+Span tracing: with a ``tracer`` (``obs.spans.SpanRecorder``) every
+query carries a request id (``rid``, in submit order) and every
+co-batch a ``flush_id``.  A batched worker opens a span tree around
+each flush (``holmes.flush``, inside which the pipeline opens its
+stage spans: marshal, dispatch with one bucket span a pass, gather,
+side, combine; ``obs.spans`` lists them), and each retired query's
+``SpanRecord`` names its ``rid``, its ``flush_id`` and that tree.
+While a profiler records, a traced worker also opens the bare range
+``holmes.server.wait`` (no span) around its blocking ``get`` while the
+batcher is empty, so the trace tells a worker with nothing to do apart
+from untraced host time.  Without a tracer no sink is open, so every
+span site costs one thread-local load and a test.
+
 The DES simulator (simulator.py) is the deterministic twin used by the
 latency profiler and benchmarks; this server is the "really runs" path
 the examples exercise (real inference on the device, real clocks).
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import queue
 import threading
@@ -81,24 +95,29 @@ class Task:
     """One submitted query in flight through the server.  Replaces the
     old ``(patient, windows, t_window)`` tuple so the span stamps the
     tracer needs ride the object itself instead of a side table.  All
-    fields except the first three are stamped lazily on the trace
-    path; ``__slots__`` keeps the per-query footprint tuple-sized.
-    ``version`` is the slot engine's close version under
-    ``engine="slots"`` (which tick must land before the read)."""
+    fields except the first three and ``rid`` are stamped lazily on the
+    trace path; ``__slots__`` keeps the per-query footprint tuple-sized.
+    ``rid`` is the request id ``submit`` gives; ``flush_id`` and
+    ``trace`` the co-batch's id and span tree.  ``version`` is the slot
+    engine's close version under ``engine="slots"`` (which tick must
+    land before the read)."""
 
-    __slots__ = ("patient", "windows", "t_window", "tier",
-                 "t_dequeue", "t_flush", "batch_n", "stages", "version")
+    __slots__ = ("patient", "windows", "t_window", "tier", "rid",
+                 "t_dequeue", "t_flush", "batch_n", "flush_id", "trace",
+                 "version")
 
     def __init__(self, patient: int, windows: Dict, t_window: float,
-                 tier: object = None):
+                 tier: object = None, rid: int = 0):
         self.patient = patient
         self.windows = windows
         self.t_window = t_window
         self.tier = tier
+        self.rid = rid
         self.t_dequeue = t_window
         self.t_flush = t_window
         self.batch_n = 1
-        self.stages: Optional[Dict[str, float]] = None
+        self.flush_id = 0
+        self.trace: Optional[_spans.SpanTree] = None
         self.version = 0
 
 
@@ -284,9 +303,12 @@ class EnsembleServer:
         # control-plane tap (duck-typed control.telemetry.SloTelemetry):
         # every ingest is an arrival, every retired query a latency sample
         self.telemetry = telemetry
-        # span tracer (obs.spans.SpanRecorder): when set, every retired
-        # query emits a lifecycle SpanRecord with stage attribution
+        # span tracer (obs.spans.SpanRecorder): when set, every flush
+        # records its span tree and every retired query a lifecycle
+        # SpanRecord naming its request id and flush
         self.tracer = tracer
+        self._rids = itertools.count(1)
+        self._flush_ids = itertools.count(1)
         self.deadline = deadline_seconds
         self._wd_interval = watchdog_interval
         self._wd_lock = threading.Lock()
@@ -355,7 +377,7 @@ class EnsembleServer:
         (which is then counted shed) instead of being rejected itself."""
         t_window = t_window if t_window is not None else time.monotonic()
         tier, prio = self._tier_and_priority(patient)
-        task = Task(patient, windows, t_window, tier)
+        task = Task(patient, windows, t_window, tier, next(self._rids))
         if self.engine == "slots":
             # fold the closed window into the bed's slot BEFORE
             # admission control: even if the read request is shed, the
@@ -400,7 +422,8 @@ class EnsembleServer:
                     if tap is not None:
                         tap(now, patient=task.patient)
             if self.tracer is not None:
-                st = task.stages or {}
+                tree = task.trace
+                st = tree.stages if tree is not None else {}
                 self.tracer.record(_spans.SpanRecord(
                     patient=task.patient, tier=task.tier,
                     status=cause or ("failed" if failed else "ok"),
@@ -409,7 +432,8 @@ class EnsembleServer:
                     batch_n=task.batch_n,
                     marshal_s=st.get("marshal", 0.0),
                     dispatch_s=st.get("dispatch", 0.0),
-                    gather_s=st.get("gather", 0.0)))
+                    gather_s=st.get("gather", 0.0),
+                    rid=task.rid, flush_id=task.flush_id, flush=tree))
             self._results.put((task.patient, score, lat, task.windows))
         for _ in tasks:
             self.q.task_done()
@@ -508,9 +532,14 @@ class EnsembleServer:
         tiered = self.tier_of is not None
         tracing = self.tracer is not None
         while not self._stop.is_set():
-            timeout = 0.05 if not len(self.batcher) else coalesce_poll
+            idle = not len(self.batcher)
+            timeout = 0.05 if idle else coalesce_poll
             try:
-                task = self.q.get(timeout=timeout)
+                if tracing and idle:
+                    with _spans.annotate("server.wait"):
+                        task = self.q.get(timeout=timeout)
+                else:
+                    task = self.q.get(timeout=timeout)
                 if tracing:
                     task.t_dequeue = time.monotonic()
                 if tiered:
@@ -543,17 +572,19 @@ class EnsembleServer:
                 continue
             windows = [t.windows for t in tasks]
             if tracing:
-                # the stamps/sink are per co-batch: every rider shares
+                # the stamps/tree are per co-batch: every rider shares
                 # the flush time and the handler's stage attribution
                 t_flush = time.monotonic()
+                fid = next(self._flush_ids)
                 for t in tasks:
                     t.t_flush = t_flush
                     t.batch_n = len(tasks)
+                    t.flush_id = fid
                 self._begin_inflight(tasks)
-                with _spans.collect() as acc:
+                with _spans.collect("flush", fid) as tree:
                     scores = self._safe_batch_scores(windows, tier)
                 for t in tasks:
-                    t.stages = acc
+                    t.trace = tree
             else:
                 self._begin_inflight(tasks)
                 scores = self._safe_batch_scores(windows, tier)
@@ -606,13 +637,14 @@ class EnsembleServer:
             if tracing:
                 # scalar path has no coalesce stage: dequeue == flush
                 task.t_dequeue = task.t_flush = time.monotonic()
+                task.flush_id = fid = next(self._flush_ids)
                 self._begin_inflight([task])
                 try:
-                    with _spans.collect() as acc:
+                    with _spans.collect("flush", fid) as tree:
                         score = self.handler(task.windows)
                 except Exception:
                     score = float("nan")
-                task.stages = acc
+                task.trace = tree
             else:
                 self._begin_inflight([task])
                 try:
