@@ -163,7 +163,8 @@ device time (a CUDA graph) and host time beside the event-timed figure
 (``decode_attention`` and ``ssd`` with their plan and scratch bytes).
 ``--only=gather,flash`` runs phase 2 for the named kernels alone
 (``--only=flush``: phase 3 alone, its flush times and host stages;
-``--only=mla``: phase 7 alone; ``--only=train``: phase 8 alone;
+``--only=placement``: phase 3c over phase 3's zoo; ``--only=mla``:
+phase 7 alone; ``--only=train``: phase 8 alone;
 ``--only=hybrid,encdec``: phases 9 and 10 alone; ``--only=mesh``: phase
 11 alone; ``--only=examples``: phase 12 alone, the full zoo restored
 from phase 8's cache under ``build/``, or built there) and prints no
@@ -2522,6 +2523,9 @@ def phase_placement(torch, np, ctx, record, card):
             ("4 lanes, host clock", sharded, None, True))
     lat = {n: {8: [], 64: [], "tick": []} for n, _, _, _ in quad}
     span = {n: {8: [], 64: []} for n, _, _, _ in quad}
+    # an unsharded flush at a captured rung replays its CUDA graph, a
+    # 4-lane one issues the eager loop: each row's flushes that replayed
+    replayed = dict.fromkeys(lat, 0)
 
     def same(name, exact, got, want, what):
         ok = np.array_equal(got, want) if exact else \
@@ -2535,11 +2539,13 @@ def phase_placement(torch, np, ctx, record, card):
             for P in (8, 64):
                 _pl._clock_start, _pl._clock_stop = \
                     host_clocks if e_ is None else clocks
+                g0 = s_.graph_flushes
                 with _spans.collect() as tree:
                     t = time.perf_counter()
                     got = np.array(s_.predict_batch(refs[:P]))
                     lat[name][P].append(time.perf_counter() - t)
                 span[name][P].append(tree.stages.get("dispatch", 0.0))
+                replayed[name] += s_.graph_flushes - g0
                 same(name, exact, got, a["out"][P],
                      f"flush P={P} round {i}")
             if e_ is None:
@@ -2573,6 +2579,9 @@ def phase_placement(torch, np, ctx, record, card):
           + " / ".join(f"{dispatch_p50[n][8]:.2f}" for n in names)
           + ", P=64 "
           + " / ".join(f"{dispatch_p50[n][64]:.2f}" for n in names)
+          + "; flushes that replayed a CUDA graph "
+          + " / ".join(f"{replayed[n]}/{len(lat[n][8]) + len(lat[n][64])}"
+                       for n in names)
           + "; device busy of one P=64 flush "
           + " / ".join(f"{busy[n]:.2f}" for n in names[:4])
           + f" ms; 4-lane warm-up {warm_s:.2f} s", flush=True)
@@ -2677,6 +2686,7 @@ def phase_placement(torch, np, ctx, record, card):
            "bitwise": {str(k): v for k, v in bitwise.items()},
            "passes": b_["passes"], "p50_ms": p50,
            "dispatch_span_p50_ms": dispatch_p50,
+           "graph_replays": replayed,
            "device_busy_ms_P64": busy, "warmup_s": warm_s,
            "failover": {"served": stats.served, "failed": stats.failed,
                         "seconds_to_first_correct_score": failover_s,
@@ -3841,20 +3851,27 @@ def phase_only(torch, np, F, specs, record, card, names,
     phase 3 alone (the full zoo's main path and its P=8/P=64 flush
     times and host stages), ``control``: phase 3d's drills over phase
     3's zoo (built once, so ``--only=control,control`` repeats the
-    drills), ``mla``: phase 7 alone, ``train``: phase 8
-    alone, ``hybrid`` or ``encdec``: phase 9 or 10 alone (traced with
-    ``--profile``), ``mesh``: phase 11 alone, ``examples``: phase 12
-    alone (the full zoo from phase 8's cache, or built), its records in
+    drills), ``placement``: phase 3c over the same zoo, ``mla``: phase
+    7 alone, ``train``: phase 8 alone, ``hybrid`` or ``encdec``: phase
+    9 or 10 alone (traced with ``--profile``), ``mesh``: phase 11
+    alone, ``examples``: phase 12 alone (the full zoo from phase 8's
+    cache, or built), its records in
     ``chiprun_out/chip_smoke_only.json``; no result line."""
     main_ctx = []
 
-    def control():
+    def main_context():
         if not main_ctx:
             main_ctx.append(phase_main(torch, np, specs, record, card)[2])
-        phase_control(torch, np, main_ctx[0], record, card)
+        return main_ctx[0]
+
+    def control():
+        phase_control(torch, np, main_context(), record, card)
 
     phases = {"flush": lambda: phase_main(torch, np, specs, record, card),
               "control": control,
+              "placement": lambda: phase_placement(torch, np,
+                                                   main_context(), record,
+                                                   card),
               "gather": lambda: phase_gather(torch, np, record),
               "conv": lambda: phase_conv(torch, np, F, specs, record),
               "mamba_conv": lambda: phase_mamba_conv(torch, np, F, record),

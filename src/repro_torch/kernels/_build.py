@@ -21,7 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -66,9 +66,16 @@ SIGNATURES = {
 }
 
 
+_capturing = threading.local()
+
+
 class LaunchCount:
     """A wrapper's launch counter: one per kernel entry point, bumped
-    where the wrapper launches its kernel and nowhere else."""
+    where the kernel launches.  A wrapper called inside a CUDA graph's
+    capture launches nothing: on a thread inside ``CaptureLaunches``
+    its bump goes to that capture's tally, and whoever replays the
+    graph ``add``s the tally back at every replay, which is where the
+    kernels run."""
 
     def __init__(self, name: str):
         self.name = name
@@ -76,12 +83,33 @@ class LaunchCount:
         self._lock = threading.Lock()    # server workers launch together
 
     def bump(self) -> None:
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[self] = tally.get(self, 0) + 1
+            return
+        self.add(1)
+
+    def add(self, n: int) -> None:
         with self._lock:
-            self.value += 1
+            self.value += n
 
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+
+
+class CaptureLaunches:
+    """Around a CUDA graph's capture: the wrappers this thread calls
+    count into the tally ``with`` yields (counter -> launches a
+    replay), not into their counters, so a capture counts nothing and
+    another thread's launches never reach the tally."""
+
+    def __enter__(self) -> Dict[LaunchCount, int]:
+        _capturing.tally = self.tally = {}
+        return self.tally
+
+    def __exit__(self, *exc) -> None:
+        _capturing.tally = None
 
 
 def _nvcc() -> str:

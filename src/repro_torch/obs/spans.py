@@ -30,7 +30,10 @@ open on the thread.  The tree, by the names a profiler trace shows
       flush.marshal         ring gather (or host pack) and its copies
         flush.marshal.lock  acquiring ``DeviceIngest.lock``
       flush.dispatch        issuing every bucket's operations
-        flush.bucket        one stacked pass
+        flush.bucket        one stacked pass (the eager loop)
+        flush.replay        the flush's CUDA graph: the input copies,
+                            the replay and the clone of its scores,
+                            under the service's graph lock
       flush.gather          the D2H copy that waits for the card
       flush.side            the vitals gather and its readback
         flush.side.lock     acquiring ``DeviceIngest.lock``

@@ -32,6 +32,27 @@ the rings (the CUDA ``window_gather`` kernel) and only the flushed
 pre-refactor member-expanded marshaling is kept as ``marshal="legacy"``.
 ``h2d_bytes`` / ``marshal_seconds`` account both regimes.
 
+One CUDA graph a flush rung
+---------------------------
+A flush on the card is some hundreds (the narrow rung) to thousands
+(the full zoo) of small operations, and issuing them one by one from
+Python costs far more host time than the card spends on them.  So
+``warmup`` captures, at each rung it warms, one ``torch.cuda.CUDAGraph``
+of the whole bucketed forward: every bucket's ``_bucket_pass`` in bucket
+order and the concatenation of their scores into one static ``[sum M,
+Ppad]`` output, read from one static ``[Ppad, ECG_LEADS, L]`` pack a
+distinct input length.  A flush at a captured rung copies its pack into
+the static one, replays the graph and clones the output, all on the
+service's own stream and under its graph lock (the two server workers
+share the static buffers), then copies the clone back once.  The graph holds the very operations
+the eager loop issues, so a replay is bitwise the eager flush.  The
+service takes it wherever it can: a CUDA device, the fused path, the
+packed marshal, no placement, and a graph at the flush's rung; every
+other flush (the CPU, a placement, the legacy marshal, a rung not
+captured) runs the eager loop.  ``graph_flushes`` and ``eager_flushes``
+count the two.  The kernels' launch counters count a replay's launches
+at the replay, as they count the eager loop's.
+
 ``impl`` (``None``, ``"torch"`` or ``"cuda"``, see ``kernels.ops``)
 selects the kernels for every conv and gather of the service; ``None``
 picks by device.  The continuous slot engine (``serving.slots``)
@@ -53,6 +74,7 @@ a 4-lane flush there runs the same launches as the unsharded one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -66,6 +88,7 @@ from repro_torch.configs.ecg_zoo import (CLIP_SECONDS, ECG_HZ, ECG_LEADS,
                                          EcgModelSpec, VITALS_HZ,
                                          bucket_zoo)
 from repro_torch.device import (DeviceLike, Lane, as_lanes, resolve_device)
+from repro_torch.kernels import _build
 from repro_torch.launch.ensemble_parallel import stack_members
 from repro_torch.models.ecg_resnext import (ecg_apply, ecg_apply_stacked,
                                             map_params)
@@ -116,6 +139,22 @@ def _lead_expand(b: _Bucket, win: torch.Tensor) -> torch.Tensor:
     bucket's ``[M, Ppad, L, 1]`` view (pure data movement)."""
     return win.index_select(1, b.lead_index).permute(1, 0, 2) \
         .unsqueeze(-1).contiguous()
+
+
+@dataclasses.dataclass
+class _FlushGraph:
+    """One captured flush rung: the graph, its static input packs
+    (input length -> ``[Ppad, ECG_LEADS, L]``), its static ``[sum M,
+    Ppad]`` scores, rows in bucket order, and the kernel launches a
+    replay makes (launch counter -> launches)."""
+    graph: "torch.cuda.CUDAGraph"
+    packs: Dict[int, torch.Tensor]
+    scores: torch.Tensor
+    launches: Dict["_build.LaunchCount", int]
+
+
+# the caching allocator keeps one capture underway a process at a time
+_CAPTURE_LOCK = threading.Lock()
 
 
 # representative flush rung for placement-planning cost measurement:
@@ -192,7 +231,12 @@ class EnsembleService:
     service's own device) just before each stacked pass of a flush or
     a slot tick, once before the unfused loop, and raising
     ``DeviceLostError`` there is how a device lost mid-flush reaches
-    the serving path.
+    the serving path.  A flush that replays a graph calls it for every
+    bucket, in bucket order, before the replay.
+
+    ``graph_flushes`` and ``eager_flushes`` count the fused flushes that
+    replayed a captured graph and those that issued the eager loop
+    (module docstring).
     """
 
     def __init__(self, members: Sequence[ZooMember],
@@ -238,6 +282,12 @@ class EnsembleService:
         self._shard_ewma: Dict[Tuple[int, ...], float] = {}
         self._count_lock = threading.Lock()    # server workers share us
         self._bucket_cache: Optional[List[_Bucket]] = None
+        self.graph_flushes = 0
+        self.eager_flushes = 0
+        self._graphs: Dict[int, _FlushGraph] = {}    # rung -> its graph
+        self._graph_lock = threading.Lock()  # a replay's static buffers
+        self._graph_pool = None              # shared by the rungs' graphs
+        self._graph_stream = None            # where captures and replays run
 
     @classmethod
     def for_selector(cls, pool: Sequence[ZooMember],
@@ -351,27 +401,77 @@ class EnsembleService:
         xs = x if self.marshal == "legacy" else _lead_expand(b, x)
         return _bucket_scores(b, xs, self.impl)
 
+    @property
+    def _graphable(self) -> bool:
+        """Whether a flush may replay a captured graph: the fused,
+        packed, unsharded path on a CUDA device."""
+        return (self.device.type == "cuda" and self.fused
+                and self.marshal == "packed" and self.placement is None)
+
     def warmup(self, batch_sizes: Sequence[int] = (1, 2, 4, 8)) -> None:
         """Run every bucket once at each pow2 flush rung (the sizes
         ``predict_batch`` pads to), so the first full-census flush pays
         no one-time cost (the kernel library build, allocator growth)
         on the latency path.  Packed mode shares one zero window pack
-        per (input length, device, flush size) across all buckets."""
+        per (input length, device, flush size) across all buckets.
+        Where a flush may replay a graph (``_graphable``) the passes run
+        on the service's own stream, and each rung not captured yet is
+        then captured on it (``_capture``)."""
         if self.fused:
-            shared: Dict = {}
-            for b in self._buckets:
-                for p in batch_sizes:
-                    key = (b.spec.input_len, b.tdev, p)
-                    x = shared.get(key)
-                    if x is None or self.marshal == "legacy":
-                        x = self._bucket_input(b, p)
-                        shared[key] = x
-                    self._bucket_pass(b, x)
+            side = None
+            if self._graphable and self._buckets:
+                if self._graph_stream is None:
+                    self._graph_stream = torch.cuda.Stream(self.device)
+                side = self._graph_stream
+                side.wait_stream(torch.cuda.current_stream(self.device))
+            with (torch.cuda.stream(side) if side is not None
+                  else contextlib.nullcontext()):
+                shared: Dict = {}
+                for b in self._buckets:
+                    for p in batch_sizes:
+                        key = (b.spec.input_len, b.tdev, p)
+                        x = shared.get(key)
+                        if x is None or self.marshal == "legacy":
+                            x = self._bucket_input(b, p)
+                            shared[key] = x
+                        self._bucket_pass(b, x)
+                if side is not None:
+                    for p in batch_sizes:
+                        self._capture(p, side)
         else:
             for m in self.members:
                 self._member_score(m, torch.zeros(
                     (1, m.spec.input_len, 1), device=self.device))
         self._sync()
+
+    def _capture(self, p: int, stream: "torch.cuda.Stream") -> None:
+        """Capture rung ``p``'s flush on ``stream``, after a pass there
+        has warmed every operation: every bucket's pass over zero
+        static packs, in bucket order, and their scores concatenated.
+        The rungs of one service share a memory pool: their replays
+        never overlap (the service's stream, under the graph lock), and
+        a replay's output is cloned before the next replay starts.
+        Capture errors only for the capturing thread, so a service can
+        capture while another serves (a hot swap's staging).  The
+        wrappers' launch counters take the capture's launches as the
+        graph's tally, which each replay adds to them."""
+        if p in self._graphs:
+            return
+        buckets = self._buckets
+        packs = {L: torch.zeros((p, ECG_LEADS, L), device=self.device)
+                 for L in sorted({b.spec.input_len for b in buckets})}
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, _build.CaptureLaunches() as launches:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  stream=stream,
+                                  capture_error_mode="thread_local"):
+                scores = torch.cat([
+                    self._bucket_pass(b, packs[b.spec.input_len])
+                    for b in buckets])
+        with self._graph_lock:
+            self._graphs[p] = _FlushGraph(graph, packs, scores, launches)
 
     def _member_score(self, m: ZooMember, x: torch.Tensor) -> torch.Tensor:
         return torch.softmax(ecg_apply(m.params, x, m.spec,
@@ -498,7 +598,13 @@ class EnsembleService:
         the host clock on the CPU, where a pass has finished when its
         call returns, and a pair of CUDA events on the card, read after
         the flush's sync.  Spans: ``flush.dispatch`` with one
-        ``flush.bucket`` a pass, then ``flush.gather``."""
+        ``flush.bucket`` a pass, then ``flush.gather``.
+
+        At a captured rung the flush replays its graph instead
+        (``_replay``)."""
+        graph = self._graphs.get(pow2_rung(P)) if self._graphable else None
+        if graph is not None:
+            return self._replay(graph, dev_wins, P)
         guard = self.dispatch_guard
         buckets = self._buckets
         timed = self.placement is not None
@@ -515,10 +621,51 @@ class EnsembleService:
                         marks.append(_clock_stop(b.tdev, start))
             with self._count_lock:
                 self.dispatch_count += len(ys)
+                self.eager_flushes += 1
         with _spans.span("flush.gather"):
             score_mat = self._retire(buckets, ys, P)
         for b, mark in zip(buckets, marks):
             self._record_retire(b, _clock_seconds(mark))
+        return score_mat
+
+    def _replay(self, graph: _FlushGraph, dev_wins: Dict,
+                P: int) -> np.ndarray:
+        """A flush at a captured rung: every bucket's guard in bucket
+        order, then, under the graph lock and on the service's own
+        stream, one copy of each pack into the static one, the replay,
+        and a clone of the static scores.  That stream waits for the
+        caller's, where the packs were written, and the caller's then
+        waits for it, whatever stream the caller flushes on; so the
+        other worker's next copy into the static buffers is ordered
+        after this clone, and the copy to the host waits outside the
+        lock.  Each replay adds the graph's launches to the kernels'
+        counters.  Spans: ``flush.dispatch`` with one ``flush.replay``
+        (the lock, the copies, the replay and the clone), then
+        ``flush.gather``, which holds the wait for the card."""
+        guard = self.dispatch_guard
+        buckets = self._buckets
+        with _spans.span("flush.dispatch"):
+            if guard is not None:
+                for b in buckets:
+                    guard(b.device)
+            with _spans.span("flush.replay"), self._graph_lock:
+                caller = torch.cuda.current_stream(self.device)
+                own = self._graph_stream
+                own.wait_stream(caller)
+                with torch.cuda.stream(own):
+                    for L, x in graph.packs.items():
+                        x.copy_(dev_wins[(L, self.device)])
+                    graph.graph.replay()
+                    y = graph.scores[:, :P].clone()
+                caller.wait_stream(own)
+            for counter, n in graph.launches.items():
+                counter.add(n)
+            with self._count_lock:
+                self.dispatch_count += len(buckets)
+                self.graph_flushes += 1
+        with _spans.span("flush.gather"):
+            score_mat = np.zeros((len(self.members), P))
+            self._place(score_mat, buckets, y, P)
         return score_mat
 
     def _retire(self, buckets: Sequence[_Bucket], ys: List[torch.Tensor],
@@ -530,12 +677,20 @@ class EnsembleService:
         for b, y in zip(buckets, ys):
             by_dev.setdefault(b.tdev, []).append((b, y))
         for pairs in by_dev.values():
-            host = torch.cat([y for _, y in pairs])[:, :P].cpu().numpy()
-            row = 0
-            for b, _ in pairs:
-                score_mat[b.idx] = host[row:row + len(b.idx)]
-                row += len(b.idx)
+            self._place(score_mat, [b for b, _ in pairs],
+                        torch.cat([y for _, y in pairs]), P)
         return score_mat
+
+    @staticmethod
+    def _place(score_mat: np.ndarray, buckets: Sequence[_Bucket],
+               y: torch.Tensor, P: int) -> None:
+        """Copy one device's ``[sum M, >= P]`` scores, rows in the order
+        of ``buckets``, to the host and into their members' rows."""
+        host = y[:, :P].cpu().numpy()
+        row = 0
+        for b in buckets:
+            score_mat[b.idx] = host[row:row + len(b.idx)]
+            row += len(b.idx)
 
     # ------------------------------------------- live shard cost drift
     def _record_retire(self, b: _Bucket, dt: float) -> None:
@@ -712,6 +867,7 @@ class EnsembleService:
         marshal_s = time.perf_counter() - t_marshal
         with self._count_lock:
             self.dispatch_count += len(ys)
+            self.eager_flushes += 1
             self.h2d_bytes += h2d
             self.marshal_seconds += marshal_s
         with _spans.span("flush.gather"):

@@ -11,7 +11,9 @@ through a clock anchor (``time.monotonic_ns`` beside the Unix-epoch
 a tracer, off-CPU time of a thread blocked on a lock, the recorder's
 drop counts, and the stage durations a ``SpanRecord`` copies.
 
-The card's trace clock is checked by the ``cuda``-marked case:
+The card's trace clock, and the tree of a flush that replays its rung's
+CUDA graph (one ``flush.replay`` under ``flush.dispatch``), are checked
+by the ``cuda``-marked cases:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_spans.py
 
@@ -392,6 +394,45 @@ def test_card_trace_clock_matches_anchor(service):
     assert len(ranges) == len(flushes) == N // MAX_BATCH
     for tree, ts in zip(flushes, ranges):
         assert abs(_trace_us(anchor, tree.root.t0, base) - ts) < 1000.0
+
+
+@pytest.mark.cuda
+def test_card_graph_flush_has_one_replay_under_dispatch(service):
+    """On the card, with the CUDA kernels, a flush at a captured rung
+    replays its graph: its tree has the stages of a CPU flush, with one
+    ``flush.replay`` under ``flush.dispatch`` in place of the bucket
+    spans, and the profiler holds one ``holmes.flush.replay`` range a
+    flush."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda:0")
+    svc = tp.EnsembleService(
+        [tp.ZooMember(m.spec, m.params) for m in service.members],
+        vitals_model=service.vitals_model, labs_model=service.labs_model,
+        device=dev)
+    svc.warmup(batch_sizes=(MAX_BATCH,))
+    di = ta.DeviceIngest([ta.ModalitySpec("ecg", 250.0, 3),
+                          ta.ModalitySpec("vitals", 1.0, 7)], N, WINDOW_S,
+                         device=dev)
+    rec = spans.SpanRecorder()
+    refs = _refs(di)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **_all_threads()) as prof:
+        _serve(svc, rec, refs)
+    evs, _ = _events(prof)
+    flushes = _flushes(rec)
+    assert len(flushes) == N // MAX_BATCH == svc.graph_flushes
+    assert svc.eager_flushes == 0
+    assert [e["name"] for e in evs if e.get("cat") == "user_annotation"
+            ].count("holmes.flush.replay") == len(flushes)
+    for tree in flushes:
+        top = _children(tree, 0)
+        assert [s.name for s in top] == STAGE_ORDER
+        by = {s.name: tree.spans.index(s) for s in top}
+        kids = _children(tree, by["flush.dispatch"])
+        assert [s.name for s in kids] == ["flush.replay"]
+        assert _inside(kids[0], tree.spans[by["flush.dispatch"]])
+        assert not tree.named("flush.bucket")
 
 
 def test_concurrent_records_and_ids_stay_whole():
