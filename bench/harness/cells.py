@@ -1,16 +1,72 @@
 """A cell of ``BENCHMARK.json``: its configuration and traffic files,
-found by name, and its per-layer metrics' readers."""
+found by name, the runner its configuration names, and its metrics'
+readers.
+
+**The runner contract.**  A configuration file may name the module that
+runs its cells in the key ``"runner"``: a module under ``bench/harness/``,
+by its name there (``"runner"`` is ``bench/harness/runner.py``, the ICU
+zoo's, and is taken where the key is absent).  ``bench/run.py`` imports
+it before any CUDA work, calls its ``run`` and prints the result line
+from the fields below alone.  A runner module has:
+
+``run(cell, seed, seconds, trace, device, t_start, beds=None) -> dict``
+    One run of ``cell`` on ``device``: set-up, the measured window of
+    ``seconds``, then, with the program's state freed, the check against
+    the plain reference.  ``t_start`` is the process's start on
+    ``time.monotonic``.  ``beds`` overrides the traffic's census; a
+    runner whose traffic has no census raises ``ValueError`` when given
+    one.  The dict holds:
+
+    - ``correct``, ``attempted``, ``failed``: as the result line has
+      them;
+    - ``metrics``: ``{name: (value, unit)}``, the cell's end-to-end
+      metrics, or with ``trace`` its per-layer ones, each from its
+      reader (``reader``) over the run's observations; a metric whose
+      reader returns ``None`` is left out;
+    - ``memory_peak_bytes``: the card's peak, read before the reference
+      runs;
+    - ``checks``: ``{name: {"value": v, "limit": l}}``, every number the
+      check compared; ``correct`` is every value within its limit;
+    - ``load``: the runner's own readings of what it offered and what
+      the check did, printed whole as the result's ``load``;
+    - ``setup_s``: process start to window start, in seconds;
+    - with ``trace``, where the run read a device trace: ``busy_s``,
+      ``window_s`` and ``breakdown`` (``trace.ProfiledSlice.fields``).
+
+``describe(out) -> list[str]``
+    The lines of standard error that say what the run offered and saw,
+    from ``run``'s dict; ``run.py`` prints them before the checks.
+
+The end-to-end readers (``bench/metrics/``) read the same observations
+from every runner:
+
+- ``latency_s``: one entry a request due in the window, in due order:
+  the seconds from its due instant to its answer's retirement, both on
+  the harness's clock; a request that failed, or whose answer was not
+  retired within the traffic's drain limit, counts at that limit;
+- ``scored``: the requests due in the window whose answer is finite and
+  retired within the drain limit;
+- ``seconds``: the window's length; ``setup_s``: as above.
+
+So a runner that fills them reports ``score_p50_ms``, ``scores_per_s``
+and ``setup_s`` under their bounds with the readers as they stand.
+"""
 from __future__ import annotations
 
+import ast
 import dataclasses
+import importlib
 import importlib.util
 import json
 import re
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 ROOT = Path(__file__).resolve().parents[2]      # the checkout
 BENCH = ROOT / "bench"
+HARNESS = "bench.harness"
+DEFAULT_RUNNER = "runner"
 _MEMBER = re.compile(r"lead(\d+)_w(\d+)_b(\d+)$")
 
 
@@ -21,6 +77,13 @@ class Cell:
     traffic: Dict
     end_to_end: List[Dict]
     per_layer: List[Dict]
+    chips: int = 1
+
+    @property
+    def runner(self) -> str:
+        """The module that runs this cell: ``bench.harness.<"runner">``
+        of the configuration file, ``bench.harness.runner`` without it."""
+        return f"{HARNESS}.{self.config.get('runner', DEFAULT_RUNNER)}"
 
     @property
     def members(self) -> List[Dict]:
@@ -69,7 +132,40 @@ def load_cell(workload: str, bench_file: Path = ROOT / "BENCHMARK.json"
              if "workloads" not in m or workload in m["workloads"]]
     return Cell(name=workload, config=load_json(ROOT / conf["file"]),
                 traffic=load_json(BENCH / "traffic" / f"{w['traffic']}.json"),
-                end_to_end=e2e, per_layer=layer)
+                end_to_end=e2e, per_layer=layer, chips=int(w["chips"]))
+
+
+def runners() -> List[str]:
+    """The runner modules of ``bench.harness``, wherever its package path
+    finds them: those whose source defines ``run`` and ``describe`` at
+    its top level."""
+    out = set()
+    for directory in importlib.import_module(HARNESS).__path__:
+        for path in Path(directory).glob("*.py"):
+            tree = ast.parse(path.read_text(), str(path))
+            defs = {n.name for n in tree.body
+                    if isinstance(n, ast.FunctionDef)}
+            if {"run", "describe"} <= defs:
+                out.add(path.stem)
+    return sorted(out)
+
+
+def load_runner(cell: Cell) -> ModuleType:
+    """The module ``cell.runner`` names, imported.  A name that is no
+    runner module exits, naming the runner modules there are."""
+    name = cell.runner[len(HARNESS) + 1:]
+    mod = None
+    if name.isidentifier():
+        try:
+            mod = importlib.import_module(cell.runner)
+        except ModuleNotFoundError as e:
+            if e.name != cell.runner:
+                raise
+    if not all(callable(getattr(mod, f, None)) for f in ("run", "describe")):
+        raise SystemExit(f"{cell.name}: the configuration's runner {name!r} "
+                         f"is no runner module of bench/harness/; there are "
+                         f"{runners()}")
+    return mod
 
 
 def reader(metric: str) -> Callable[[Dict], Optional[float]]:

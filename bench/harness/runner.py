@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import os
+import json
 import sys
-import tempfile
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -27,7 +26,7 @@ from bench.counts.peaks import TF32_FLOP_S
 from bench.harness import traffic as tr
 from bench.harness.cells import Cell, reader
 from bench.harness.stats import percentile
-from bench.harness.trace import load_events, summarize
+from bench.harness.trace import ProfiledSlice
 from bench.harness.weights import make_params, side_data
 from bench.reference import side as ref_side
 from bench.reference.ensemble import BLOCK, eq5, member_probs
@@ -81,17 +80,6 @@ def _modalities(config: Dict):
                          config["vitals_channels"])]
 
 
-def _all_threads() -> Dict:
-    """Profiler options that record the server's worker threads too (they
-    started before the profiler), where this PyTorch has the option."""
-    try:
-        from torch._C._profiler import _ExperimentalConfig
-        return {"experimental_config": _ExperimentalConfig(
-            profile_all_threads=True)}
-    except (ImportError, TypeError):
-        return {}
-
-
 def _warm_flushes(svc, config: Dict, pool: tr.Pool, prefill: int,
                   device: torch.device) -> None:
     """Serve one flush of real ring refs at every rung, over a scratch
@@ -120,10 +108,9 @@ def _warm_flushes(svc, config: Dict, pool: tr.Pool, prefill: int,
 def run(cell: Cell, seed: int, seconds: float, trace: bool,
         device: torch.device, t_start: float, beds: Optional[int] = None
         ) -> Dict:
-    """One run; returns the result's fields (``correct``, ``attempted``,
-    ``failed``, ``metrics``, ``device``, and with ``trace`` the
-    ``breakdown``) with the load and check readings beside them.
-    ``t_start`` is the process's start on ``time.monotonic``."""
+    """One run, as the runner contract of ``bench/harness/cells.py``
+    has it; besides, ``latency_ms`` (each window query's latency, in due
+    order) and ``score_p50_ms``."""
     from repro_torch.obs.spans import SpanRecorder
     from repro_torch.serving.aggregator import DeviceIngest
     from repro_torch.serving.pipeline import EnsembleService, ZooMember
@@ -163,13 +150,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
     tracer = None
     annotate: Callable = lambda name: contextlib.nullcontext()
     if trace:
-        from torch.profiler import ProfilerActivity, profile, record_function
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
-                                         else [])
-        kw = _all_threads()
-        with profile(activities=acts, **kw):    # the profiler's start-up
-            torch.zeros(1, device=device).add_(1)
-        prof = profile(activities=acts, **kw)
+        from torch.profiler import record_function
+        prof = ProfiledSlice(device, float(mix["trace_seconds"]))
         tracer = SpanRecorder(keep=4 * n_beds + 4096)
         annotate = record_function
     scored_at: Dict[int, float] = {}    # qid -> when its score came back
@@ -189,8 +171,6 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
     T0 = time.monotonic()
     w0, w1 = T0 + pre, T0 + pre + seconds
     setup_s = w0 - t_start
-    p_off = float("inf")
-    p_wall = [0.0, 0.0]
     answers: Dict[int, tuple] = {}
     shed: List[int] = []
     late: List[float] = []
@@ -217,14 +197,11 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
             batch1 = srv.batcher.stats_snapshot()
             backlog["end"] = srv.q.unfinished_tasks
         if prof is not None:
-            if not p_wall[0] and kind == tr.CLOSE \
+            if not prof.started and kind == tr.CLOSE \
                     and due >= w1 + TRACE_AFTER_S:
                 prof.start()
-                p_wall[0] = time.monotonic()
-                p_off = p_wall[0] + float(mix["trace_seconds"])
-            elif p_wall[0] and not p_wall[1] and now >= p_off:
+            elif prof.due_to_stop(now):
                 prof.stop()
-                p_wall[1] = time.monotonic()
         in_window = w0 <= due < w1
         if in_window:
             late.append(now - due)
@@ -252,13 +229,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         if now >= next_poll:
             collect()
             next_poll = now + RESULT_POLL_S
-            if now >= w1 and (p_wall[1] or prof is None):
+            if now >= w1 and (prof is None or prof.stopped):
                 done = all(i in answers or i in shed for i in window_qids)
                 if done or now >= w1 + drain:
                     break
-    if prof is not None and not p_wall[1]:
+    if prof is not None:
         prof.stop()
-        p_wall[1] = time.monotonic()
     memory_peak = (torch.cuda.max_memory_allocated(device) if cuda else 0)
     stats = srv.stop()
     deadline = time.monotonic() + ANSWER_WAIT_S
@@ -303,21 +279,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
     obs = {"seconds": seconds, "setup_s": setup_s, "latency_s": lat,
            "scored": n_ok, "members": members, "peak_flop_s": TF32_FLOP_S}
     if trace:
-        summary = None
-        if cuda:
-            fd, path = tempfile.mkstemp(suffix=".json")
-            os.close(fd)
-            try:
-                prof.export_chrome_trace(path)
-                summary = summarize(load_events(path))
-            finally:
-                os.remove(path)
-            if summary is not None:
-                ops = sorted(f["ops"] for f in summary["flushes"])
-                log(f"trace: {p_wall[1] - p_wall[0]:.3f} s profiled, "
-                    f"{len(ops)} whole flushes, device ops a flush "
-                    f"{ops[:1]}..{ops[-1:]}, rungs "
-                    f"{sorted(f['ppad'] for f in summary['flushes'])}")
+        summary = prof.summary()
+        if summary is not None:
+            ops = sorted(f["ops"] for f in summary["flushes"])
+            log(f"trace: {prof.t1 - prof.t0:.3f} s profiled, "
+                f"{len(ops)} whole flushes, device ops a flush "
+                f"{ops[:1]}..{ops[-1:]}, rungs "
+                f"{sorted(f['ppad'] for f in summary['flushes'])}")
         obs.update({
             "spans": [s for s in tracer.spans() if w0 <= s.t_submit < w1],
             "ingest_s": ingest_s,
@@ -342,24 +310,34 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         v = reader(m["name"])(obs)
         if v is not None:
             metrics[m["name"]] = (v, m["unit"])
-    out = {
+    load.update(checked=len(served),
+                check_seconds=time.perf_counter() - t_check,
+                worst_query=worst, setup_s=setup_s,
+                score_p50_ms=1e3 * percentile(lat, 50),
+                score_p95_ms=1e3 * percentile(lat, 95))
+    return {
         "correct": bool(correct), "attempted": attempted,
         "failed": attempted - n_ok, "metrics": metrics,
         "memory_peak_bytes": int(memory_peak), "load": load,
-        "checks": checks, "checked": len(served),
-        "check_seconds": time.perf_counter() - t_check,
-        "worst_query": worst, "setup_s": setup_s,
+        "checks": checks, "setup_s": setup_s,
         "latency_ms": [1e3 * x for x in lat],
-        "score_p50_ms": 1e3 * percentile(lat, 50),
-        "score_p95_ms": 1e3 * percentile(lat, 95),
+        "score_p50_ms": load["score_p50_ms"],
+        **ProfiledSlice.fields(obs.get("trace")),
     }
-    summary = obs.get("trace")
-    if summary is not None:
-        out["busy_s"] = summary["busy_s"]
-        out["window_s"] = summary["window_s"]
-        out["breakdown"] = {"device_ops": summary["device_ops"],
-                            "idle_gaps": summary["idle_gaps"]}
-    return out
+
+
+def describe(out: Dict) -> List[str]:
+    """The census the run offered, how late the generator ran, the
+    backlog and shed queries, then every window query's latency."""
+    load = out["load"]
+    return [
+        f"load: {load['beds']} beds, {load['offered_per_s']:.3f} windows/s; "
+        f"generator late p50 {load['late_p50_ms']:.3f} ms, p95 "
+        f"{load['late_p95_ms']:.3f} ms, max {load['late_max_ms']:.3f} ms; "
+        f"backlog {load['backlog_start']} -> {load['backlog_end']}; "
+        f"shed {load['shed']}",
+        "latencies_ms (due order) " + json.dumps(
+            [round(x, 3) for x in out["latency_ms"]])]
 
 
 def reference_scores(cell: Cell, book: tr.FeedBook, pool: tr.Pool,

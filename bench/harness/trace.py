@@ -1,5 +1,6 @@
-"""Reduce a ``torch.profiler`` chrome trace to what the per-layer
-metrics and the ``breakdown`` read.
+"""A ``torch.profiler`` slice of a run (``ProfiledSlice``), and the
+reduction of its chrome trace to what the per-layer metrics and the
+``breakdown`` read.
 
 Device operations are the trace's ``kernel``, ``gpu_memcpy`` and
 ``gpu_memset`` events.  Each is tied to the host call that launched it
@@ -12,6 +13,9 @@ from __future__ import annotations
 
 import bisect
 import json
+import os
+import tempfile
+import time
 from collections import defaultdict
 from typing import Dict, List, Optional
 
@@ -24,6 +28,81 @@ API = "cuda_"          # the CUDA API calls: runtime and lower-level
 FLUSH = "bench.flush."
 TOP = 10
 EDGE_US = 100.0      # a whole flush starts and ends this far inside
+
+
+def _all_threads() -> Dict:
+    """Profiler options that record every thread of the process, those
+    started before the profiler too, where this PyTorch has the option."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return {"experimental_config": _ExperimentalConfig(
+            profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
+
+
+class ProfiledSlice:
+    """One ``torch.profiler`` slice of every thread, started and stopped
+    at the instants the runner chooses.  Made in set-up: the profiler's
+    own start-up runs then, once, outside the window."""
+
+    def __init__(self, device, seconds: float):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        self.cuda = device.type == "cuda"
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if self.cuda else [])
+        kw = _all_threads()
+        with profile(activities=acts, **kw):    # the profiler's start-up
+            torch.zeros(1, device=device).add_(1)
+        self.prof = profile(activities=acts, **kw)
+        self.seconds = seconds
+        self.t0 = self.t1 = 0.0
+
+    @property
+    def started(self) -> bool:
+        return bool(self.t0)
+
+    @property
+    def stopped(self) -> bool:
+        return bool(self.t1)
+
+    def start(self) -> None:
+        self.prof.start()
+        self.t0 = time.monotonic()
+
+    def due_to_stop(self, now: float) -> bool:
+        """Started, not stopped, and ``seconds`` past the start."""
+        return self.started and not self.stopped \
+            and now >= self.t0 + self.seconds
+
+    def stop(self) -> None:
+        if self.started and not self.stopped:
+            self.prof.stop()
+            self.t1 = time.monotonic()
+
+    def summary(self) -> Optional[Dict]:
+        """``summarize`` of the slice's chrome trace, through a temporary
+        file freed at once; ``None`` without a device trace."""
+        if not (self.cuda and self.stopped):
+            return None
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            self.prof.export_chrome_trace(path)
+            return summarize(load_events(path))
+        finally:
+            os.remove(path)
+
+    @staticmethod
+    def fields(summary: Optional[Dict]) -> Dict:
+        """A runner's ``busy_s``, ``window_s`` and ``breakdown`` from a
+        ``summary``; nothing without one."""
+        if summary is None:
+            return {}
+        return {"busy_s": summary["busy_s"], "window_s": summary["window_s"],
+                "breakdown": {"device_ops": summary["device_ops"],
+                              "idle_gaps": summary["idle_gaps"]}}
 
 
 def load_events(path: str) -> List[Dict]:

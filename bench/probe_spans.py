@@ -150,7 +150,8 @@ def _patched(runner, rec, keep: Dict):
     kept in ``keep``."""
     import repro_torch.obs.spans as sp
     import repro_torch.serving.aggregator as agg
-    orig = (agg.DeviceIngest, sp.SpanRecorder, runner.load_events,
+    from bench.harness import trace
+    orig = (agg.DeviceIngest, sp.SpanRecorder, trace.load_events,
             runner.reader)
 
     class TracedIngest(orig[0]):
@@ -176,12 +177,12 @@ def _patched(runner, rec, keep: Dict):
             keep["obs"] = obs
             return r(obs)
         return read
-    agg.DeviceIngest, sp.SpanRecorder, runner.load_events, \
+    agg.DeviceIngest, sp.SpanRecorder, trace.load_events, \
         runner.reader = TracedIngest, KeptRecorder, load, reader
     try:
         yield
     finally:
-        agg.DeviceIngest, sp.SpanRecorder, runner.load_events, \
+        agg.DeviceIngest, sp.SpanRecorder, trace.load_events, \
             runner.reader = orig
 
 

@@ -9,9 +9,11 @@ line of standard output is one JSON object: ``correct``, ``attempted``,
 0``, its per-layer metrics with ``--trace 1``), ``device``, with
 ``--trace 1`` a ``breakdown``, and last ``checks``: every number the
 check compared, beside its limit (also the last lines of standard
-error).  Without a card, or with JAX or the JAX package loaded, it
-prints no result and exits non-zero.  ``--beds`` overrides the mix's
-census (the knee sweep, ``bench/sweep.py``)."""
+error).  The cell's configuration names the runner module that does the
+run (the runner contract, ``bench/harness/cells.py``); this file holds
+nothing of any one runner.  Without a card, or with JAX or the JAX
+package loaded, it prints no result and exits non-zero.  ``--beds``
+overrides the mix's census (the knee sweep, ``bench/sweep.py``)."""
 import time
 
 T_START = time.monotonic()
@@ -22,6 +24,7 @@ import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
+from typing import Dict  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -49,6 +52,25 @@ def _power_limit() -> str:
         return "not read"
 
 
+def result_of(out: Dict, kind: str, chips: int, trace: bool) -> Dict:
+    """The result line from a runner's fields alone."""
+    result = {
+        "correct": out["correct"], "attempted": out["attempted"],
+        "failed": out["failed"],
+        "metrics": {k: {"value": v, "unit": u}
+                    for k, (v, u) in out["metrics"].items()},
+        "device": {"platform": "gpu", "kind": kind, "count": chips,
+                   "memory_peak_bytes": out["memory_peak_bytes"]},
+    }
+    if trace and "busy_s" in out:
+        result["device"]["busy_s"] = out["busy_s"]
+        result["device"]["window_s"] = out["window_s"]
+        result["breakdown"] = out["breakdown"]
+    result["load"] = out["load"]
+    result["checks"] = out["checks"]
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -65,56 +87,30 @@ def main(argv=None) -> int:
         if p not in sys.path:
             sys.path.insert(0, p)
 
-    from bench.harness.cells import load_cell, load_json
+    from bench.harness.cells import load_cell, load_runner
     cell = load_cell(args.workload)
-    chips = {w["name"]: w["chips"] for w
-             in load_json(ROOT / "BENCHMARK.json")["workloads"]}[args.workload]
+    runner = load_runner(cell)
+    chips = cell.chips
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         _log(f"needs {chips} CUDA card(s): cuda available "
              f"{torch.cuda.is_available()}, {torch.cuda.device_count()} "
              "card(s); no result")
         return 2
-    from bench.harness.runner import run
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(dev)
     _log(f"card: {kind}; nvidia-smi: {_power_limit()}; torch "
          f"{torch.__version__} cuda {torch.version.cuda}")
-    out = run(cell, args.seed, args.seconds, bool(args.trace), dev, T_START,
-              beds=args.beds)
+    out = runner.run(cell, args.seed, args.seconds, bool(args.trace), dev,
+                     T_START, beds=args.beds)
     found = forbidden_modules()
     if found:
         _log(f"modules of JAX or the JAX package are loaded: {found}; "
              "no result")
         return 3
-    result = {
-        "correct": out["correct"], "attempted": out["attempted"],
-        "failed": out["failed"],
-        "metrics": {k: {"value": v, "unit": u}
-                    for k, (v, u) in out["metrics"].items()},
-        "device": {"platform": "gpu", "kind": kind, "count": chips,
-                   "memory_peak_bytes": out["memory_peak_bytes"]},
-    }
-    if args.trace:
-        if "busy_s" in out:
-            result["device"]["busy_s"] = out["busy_s"]
-            result["device"]["window_s"] = out["window_s"]
-            result["breakdown"] = out["breakdown"]
-    result["load"] = {**out["load"], "checked": out["checked"],
-                      "check_seconds": out["check_seconds"],
-                      "worst_query": out["worst_query"],
-                      "setup_s": out["setup_s"],
-                      "score_p50_ms": out["score_p50_ms"],
-                      "score_p95_ms": out["score_p95_ms"]}
-    result["checks"] = out["checks"]
-    load = out["load"]
-    _log(f"load: {load['beds']} beds, {load['offered_per_s']:.3f} windows/s; "
-         f"generator late p50 {load['late_p50_ms']:.3f} ms, p95 "
-         f"{load['late_p95_ms']:.3f} ms, max {load['late_max_ms']:.3f} ms; "
-         f"backlog {load['backlog_start']} -> {load['backlog_end']}; "
-         f"shed {load['shed']}")
-    _log("latencies_ms (due order) " + json.dumps(
-        [round(x, 3) for x in out["latency_ms"]]))
+    result = result_of(out, kind, chips, bool(args.trace))
+    for line in runner.describe(out):
+        _log(line)
     for name, c in out["checks"].items():
         _log(f"check {name} {c['value']!r} limit {c['limit']!r}")
     print(json.dumps(result), flush=True)
