@@ -244,3 +244,72 @@ class ArchConfig:
                   else self.head_dim)
             f += 2.0 * layers * self.n_heads * hd * (ctx if decode else ctx)
         return f
+
+
+@dataclasses.dataclass(frozen=True)
+class Zamba2Config(ArchConfig):
+    """The published Zamba2 hybrid (``models/zamba2.py``'s docstring has
+    its equations): ``num_mem_blocks`` weight-shared attention+MLP blocks
+    invoked in turn before the Mamba layers ``hybrid_layer_ids``.  Each
+    invocation reads ``concat(x, x0)`` (width ``2 d_model``), attends
+    with ``n_heads`` heads of ``head_dim`` at the scale ``(head_dim /
+    2) ** -0.5``, runs a gated-GELU MLP of ``d_ff`` with its own
+    rank-``adapter_rank`` adapter, and maps the result through its own
+    ``d_model x d_model`` linear into the next Mamba layer's input.  The
+    Mamba layers' gated norm runs over ``ssm.n_groups`` groups."""
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 2
+    adapter_rank: int = 0
+
+    @property
+    def attn_width(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def attn_scale(self) -> float:
+        return (self.head_dim / 2) ** -0.5
+
+    def _mamba_layer_params(self) -> int:
+        s, d = self.ssm, self.d_model
+        di, H = s.d_inner(d), s.n_heads(d)
+        return (d * (2 * di + 2 * s.n_groups * s.d_state + H)    # in projs
+                + s.conv_channels(d) * (s.conv_width + 1)        # convs, bias
+                + 3 * H + di + di * d + d)       # A_log, D, dt_bias, norms
+
+    def _shared_block_params(self) -> int:
+        d, a = self.d_model, self.attn_width
+        kv = self.n_kv_heads * self.head_dim
+        return (2 * d + 2 * d * (a + 2 * kv) + a * d + d
+                + 3 * d * self.d_ff)
+
+    def _invocation_params(self) -> int:
+        d = self.d_model
+        return d * self.adapter_rank + self.adapter_rank * 2 * self.d_ff \
+            + d * d
+
+    def param_count(self) -> int:
+        n = self.padded_vocab * self.d_model * (1 if self.tie_embeddings
+                                                 else 2)
+        return (n + self.d_model + self.num_layers * self._mamba_layer_params()
+                + self.num_mem_blocks * self._shared_block_params()
+                + len(self.hybrid_layer_ids) * self._invocation_params())
+
+    def flops_per_token(self, seq_len: int, decode: bool = False) -> float:
+        """Forward FLOPs a token: 2 per weight it touches (the shared
+        blocks once per invocation, the tied head once) plus the score
+        and value products over ``seq_len`` keys in every invocation."""
+        J = len(self.hybrid_layer_ids)
+        touched = (self.padded_vocab * self.d_model + self.d_model
+                   + self.num_layers * self._mamba_layer_params()
+                   + J * (self._shared_block_params()
+                          + self._invocation_params()))
+        return 2.0 * touched + 4.0 * J * self.attn_width * seq_len
+
+    def reduced(self) -> "Zamba2Config":
+        """Smoke-test variant: 3 layers with both blocks invoked (before
+        layers 1 and 2), ``ArchConfig.reduced``'s widths, adapter rank 8."""
+        r = super().reduced()
+        return dataclasses.replace(
+            r, num_layers=min(3, self.num_layers), hybrid_layer_ids=(1, 2),
+            num_mem_blocks=min(2, self.num_mem_blocks),
+            adapter_rank=min(8, self.adapter_rank))

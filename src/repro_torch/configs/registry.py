@@ -1,5 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for launchers/tests
-(data only, the same ten configurations as ``repro/configs``)."""
+(data only).  ``ARCH_IDS`` are the same ten configurations as
+``repro/configs``; ``get_config`` also resolves the port's own
+``zamba2-7b-instruct`` (the published Zamba2 structure, which the JAX
+package does not model) and its ``-reduced``."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -8,7 +11,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs import (
     deepseek_v2_lite_16b, zamba2_7b, phi35_moe_42b, qwen3_4b,
     seamless_m4t_medium, command_r_35b, mamba2_2p7b, internvl2_26b,
-    granite_20b, smollm_360m,
+    granite_20b, smollm_360m, zamba2_7b_instruct,
 )
 
 _ARCHS: Dict[str, ArchConfig] = {
@@ -25,13 +28,20 @@ _ARCHS: Dict[str, ArchConfig] = {
 }
 
 ARCH_IDS: List[str] = list(_ARCHS)
+# the port's own configurations, beyond the JAX package's ten
+_PORT_ONLY: Dict[str, ArchConfig] = {
+    "zamba2-7b-instruct": zamba2_7b_instruct.CONFIG,
+}
 
 
 def get_config(arch: str) -> ArchConfig:
     if arch.endswith("-reduced"):
         return get_config(arch[: -len("-reduced")]).reduced()
+    if arch in _PORT_ONLY:
+        return _PORT_ONLY[arch]
     if arch not in _ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; options: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; options: "
+                       f"{ARCH_IDS + list(_PORT_ONLY)}")
     return _ARCHS[arch]
 
 

@@ -67,6 +67,7 @@ SIGNATURES = {
 
 
 _capturing = threading.local()
+COUNTERS: List["LaunchCount"] = []     # every kernel's, in import order
 
 
 class LaunchCount:
@@ -81,6 +82,7 @@ class LaunchCount:
         self.name = name
         self.value = 0
         self._lock = threading.Lock()    # server workers launch together
+        COUNTERS.append(self)
 
     def bump(self) -> None:
         tally = getattr(_capturing, "tally", None)
@@ -96,6 +98,11 @@ class LaunchCount:
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+
+
+def total_launches() -> int:
+    """The launches every kernel wrapper has counted so far."""
+    return sum(c.value for c in COUNTERS)
 
 
 class CaptureLaunches:

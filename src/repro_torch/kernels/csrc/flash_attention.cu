@@ -9,7 +9,8 @@
 // order, so here the k axis is a loop inside the block and m, l, acc live
 // in registers.  What it computes is repro_torch/kernels/ref.py
 // attention, with v of width Dv (equal to D: 16, 32, 64, 112 for
-// zamba2, 128; or 128 at D = 192 for the materialized MLA prefill):
+// zamba2, 128, 224 for the published Zamba2's shared blocks; or 128 at
+// D = 192 for the materialized MLA prefill):
 //
 //   s[q, t] = scale * q[b, q, h, :] . k[b, t, h / g, :]
 //   visible = kpos[t] >= 0  &&  (!causal || kpos[t] <= qpos[q])
@@ -67,7 +68,16 @@
 //   live tile in flight while this one is multiplied, with one barrier a
 //   tile.  BK = 64 keys a tile for D <= 128 (203 KB of shared memory at
 //   D = 128, and at D = 112, whose rows pad to the same 132 floats), 32
-//   at D = 192 (185 KB): one block of 8 warps an SM.
+//   at D = 192 (185 KB): one block of 8 warps an SM.  At D = Dv = 224
+//   (rows of 228 floats) 128 query rows and two 32-key slots would take
+//   233,728 bytes, over the 232,448 a block may have, so the tiles take
+//   BK = 16 keys (171 KB, one block of 8 warps an SM; a lane of the
+//   kpos passes past BK reads none).  At B = 4, S = T = 3584 causal,
+//   on an H100 (700 W), that is 16.64 ms a call against 22.59 for 64
+//   query rows in 4 warps with 32-key tiles, which also spilled 84
+//   bytes a thread to this plan's 8 (both 255 registers: a warp's
+//   16 x 224 output fragment, 112 floats a lane, is why the warps are
+//   not also halved along Dv).
 //   Unrolling the stages of Q K^T was slower (2.68 against 2.55 ms).
 // * Which tiles are live is known before the loop: the block first reads
 //   the kpos of every tile (all at once, a pass of up to 1024 tiles) and
@@ -135,7 +145,8 @@ struct Cfg {
   static constexpr int BQ = 128;                  // query rows a block
   static constexpr int NW = BQ / 16;              // warps, 16 rows each
   static constexpr int NT = 32 * NW;
-  static constexpr int BK = D > 128 ? 32 : 64;    // keys a tile
+  static constexpr int BK = D > 192 ? 16 : D > 128 ? 32 : 64;  // keys a tile
+  static constexpr int KPL = (BK + 31) / 32;      // kpos a lane reads a tile
   static constexpr int LDQ = pad_ld(D);           // rows of Q and K
   static constexpr int LDV = pad_ld(DV);
   static constexpr int NT8 = BK / 8;              // score n8 tiles a warp
@@ -284,7 +295,7 @@ __global__ void __launch_bounds__(Cfg<D, DV>::NT, 1)
     flash_prefill_kernel(Params p) {
   using C = Cfg<D, DV>;
   constexpr int BK = C::BK, NW = C::NW, NT = C::NT, LDQ = C::LDQ,
-                LDV = C::LDV, NT8 = C::NT8;
+                LDV = C::LDV, NT8 = C::NT8, KPL = C::KPL;
   extern __shared__ __align__(16) float sm[];
   __shared__ unsigned live_bits[PASS_TILES / 32];
   __shared__ int wq_lo[NW], wq_hi[NW];
@@ -364,20 +375,21 @@ __global__ void __launch_bounds__(Cfg<D, DV>::NT, 1)
     for (int i = tid; i < PASS_TILES / 32; i += NT) live_bits[i] = 0u;
     __syncthreads();
     for (int j0 = warp; j0 < n; j0 += 4 * NW) {
-      int kp[4][BK / 32];
+      int kp[4][KPL];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int e = 0; e < BK / 32; ++e) {
+        for (int e = 0; e < KPL; ++e) {
           const int j = j0 + u * NW;
           const int tk = (p0 + j) * BK + 32 * e + lane;
-          kp[u][e] = j < n && tk < p.T ? __ldg(p.kpos + tk) : -1;
+          kp[u][e] = j < n && tk < p.T && 32 * e + lane < BK
+                         ? __ldg(p.kpos + tk) : -1;
         }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         int kmin = INT_MAX, kmax = -1;
 #pragma unroll
-        for (int e = 0; e < BK / 32; ++e) {
+        for (int e = 0; e < KPL; ++e) {
           if (kp[u][e] >= 0) kmin = min(kmin, kp[u][e]);
           kmax = max(kmax, kp[u][e]);
         }
@@ -407,7 +419,8 @@ __global__ void __launch_bounds__(Cfg<D, DV>::NT, 1)
       int kmin = INT_MAX, kmax = -1;
       bool all = true;
 #pragma unroll
-      for (int e = 0; e < BK / 32; ++e) {
+      for (int e = 0; e < KPL; ++e) {
+        if (32 * e + lane >= BK) continue;
         const int kp = kps[32 * e + lane];
         if (kp >= 0) kmin = min(kmin, kp);
         kmax = max(kmax, kp);
@@ -595,6 +608,7 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
   else if (D == 112 && Dv == 112) e = launch<112, 112>(p, st);  // zamba2
   else if (D == 128 && Dv == 128) e = launch<128, 128>(p, st);
   else if (D == 192 && Dv == 128) e = launch<192, 128>(p, st);  // MLA
+  else if (D == 224 && Dv == 224) e = launch<224, 224>(p, st);  // Zamba2
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

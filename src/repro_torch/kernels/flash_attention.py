@@ -1,8 +1,9 @@
 """CUDA ``flash_attention``: the prefill attention of the LM path
 (``S > 1``; source: ``csrc/flash_attention.cu``; replaces
 ``repro/kernels/flash_attention.py:98``).  Computes ``ref.attention``
-within the port's tolerance, for ``Dv == D`` (zamba2's 112 among them)
-and for the materialized MLA prefill's ``(D, Dv) = (192, 128)``, as
+within the port's tolerance, for ``Dv == D`` (zamba2's 112 and the
+published Zamba2's 224 among them) and for the materialized MLA
+prefill's ``(D, Dv) = (192, 128)``, as
 3xTF32 products on the tensor cores; bitwise repeatable at a fixed
 shape.  Causal or not, with or without a window, and with ``T != S``
 (seamless's cross-attention: all-zero positions, not causal).  A single decode
@@ -19,8 +20,26 @@ launches = _build.LaunchCount("flash_attention")
 
 # the kernel's (D, Dv) instantiations
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (112, 112), (128, 128),
-             (192, 128))
-BLOCK_Q = 128         # query rows a block (Cfg::BQ in the source)
+             (192, 128), (224, 224))
+SMEM_MAX = 232448     # bytes of shared memory a block may have
+
+
+def pad_ld(width: int) -> int:
+    """A tile row of ``width`` floats padded to 4 mod 32 (``pad_ld``)."""
+    return width + (36 - width % 32) % 32
+
+
+def tile_plan(D: int, Dv: int) -> dict:
+    """The source's ``Cfg<D, Dv>``: query rows a block (``bq``, 128), its
+    warps of 16 rows, keys a tile (``bk``: 64 to D = 128, 32 to D = 192,
+    else 16, where two 32-key slots do not fit beside 128 rows) and a
+    block's bytes of shared memory (``smem``: Q, and two ring slots of
+    K, V and kpos)."""
+    bq = 128
+    bk = 16 if D > 192 else 32 if D > 128 else 64
+    slot = bk * pad_ld(D) + bk * pad_ld(Dv) + bk
+    return {"bq": bq, "warps": bq // 16, "bk": bk,
+            "smem": 4 * (bq * pad_ld(D) + 2 * slot)}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,7 +84,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dtype != torch.int32 or tuple(t.shape) != (n,):
             raise ValueError(f"flash_attention: {name} must be [{n}] int32, "
                              f"got {tuple(t.shape)} {t.dtype}")
-    if -(-S // BLOCK_Q) * B * Hq >= 2 ** 31 or B * S >= 2 ** 31:
+    if -(-S // tile_plan(D, Dv)["bq"]) * B * Hq >= 2 ** 31 \
+            or B * S >= 2 ** 31:
         raise ValueError(f"flash_attention: B={B}, Hq={Hq}, S={S} exceed "
                          "the kernel's grid or row index")
     out = torch.empty((B, S, Hq, Dv), dtype=q.dtype, device=dev)

@@ -5,6 +5,8 @@
     python -m repro_torch.launch.serve --arch mamba2-2.7b --prompt-len 2048
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
     python -m repro_torch.launch.serve --arch zamba2-7b --prompt-len 2048
+    python -m repro_torch.launch.serve --arch zamba2-7b-instruct \
+        --batch 8 --prompt-len 3584                        # published
     python -m repro_torch.launch.serve --arch seamless-m4t-medium
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-lite-16b-reduced --device cpu      # plain, CPU
@@ -22,7 +24,8 @@ reference's keys (``prefill_s``, ``decode_tok_per_s``,
 ``decode_ms_per_token``); the card is synchronised before every clock
 read.  The kernels are built before the clock starts; ``prefill_s`` is
 the first prefill of the process, as in the reference (whose clock
-includes the jit compile).
+includes the jit compile).  ``greedy_step`` is one step of the decode
+loop, the body the benchmark's LM runner drives step by step.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import argparse
 import json
 import sys
 import time
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -38,8 +41,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
-from repro_torch.models.api import get_model
+from repro_torch.models.api import ModelApi, get_model
 from repro_torch.models.runtime import RuntimeOptions
+from repro_torch.obs.spans import SpanTree, collect, count
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,6 +61,28 @@ def parse_args(argv=None) -> argparse.Namespace:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def greedy_step(model: ModelApi, params, cache, tok: torch.Tensor,
+                cfg: ArchConfig, rt: RuntimeOptions,
+                trees: Optional[List[SpanTree]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """One step of the served batch: ``decode_step`` of ``tok`` ``[B]``,
+    then the greedy next tokens on the device.  Returns (logits ``[B,
+    V_padded]``, next tokens ``[B]`` int32, the advanced cache).  With
+    ``trees`` the step runs inside a span sink ``lm.step`` (ident: its
+    position) whose tree, with its ``launches`` counter (and the
+    model's ``kv_positions``), is appended to ``trees``."""
+    if trees is None:
+        logits, cache = model.decode_step(params, cache, tok, cfg, rt)
+        return logits, torch.argmax(logits, -1).to(torch.int32), cache
+    n0 = _build.total_launches()
+    with collect("lm.step", cache["idx"]) as tree:
+        logits, cache = model.decode_step(params, cache, tok, cfg, rt)
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        count("launches", _build.total_launches() - n0)
+    trees.append(tree)
+    return logits, nxt, cache
 
 
 def run(args: argparse.Namespace,
@@ -102,10 +128,9 @@ def run(args: argparse.Namespace,
     out, step_logits = [tok], []
     t0 = time.perf_counter()
     for _ in range(args.new_tokens):
-        logits, cache = model.decode_step(params, cache, tok, cfg, rt)
+        logits, tok, cache = greedy_step(model, params, cache, tok, cfg, rt)
         if len(step_logits) < 2:
             step_logits.append(logits)
-        tok = torch.argmax(logits, -1).to(torch.int32)
         out.append(tok)
     _sync(dev)
     t_decode = time.perf_counter() - t0

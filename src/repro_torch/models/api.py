@@ -10,16 +10,18 @@
 Every family of the reference has its assembly: dense, VLM, MoE and
 pure SSM in ``transformer.py`` (GQA or MLA attention; ``deepseek-v2-lite-16b``
 is a MoE model with MLA), the Mamba2 backbone with a shared attention
-block in ``hybrid.py`` (``zamba2-7b``) and the audio encoder-decoder in
-``encdec.py`` (``seamless-m4t-medium``).
+block in ``hybrid.py`` (``zamba2-7b``), the published Zamba2's two
+alternating shared blocks in ``zamba2.py`` (a ``Zamba2Config``:
+``zamba2-7b-instruct``) and the audio encoder-decoder in ``encdec.py``
+(``seamless-m4t-medium``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models import encdec, hybrid, transformer
+from repro_torch.configs.base import ArchConfig, Zamba2Config
+from repro_torch.models import encdec, hybrid, transformer, zamba2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +49,14 @@ _HYBRID = ModelApi(
     init_cache=hybrid.init_cache,
 )
 
+_ZAMBA2 = ModelApi(
+    init=zamba2.init,
+    forward=zamba2.forward,
+    prefill=zamba2.prefill,
+    decode_step=zamba2.decode_step,
+    init_cache=zamba2.init_cache,
+)
+
 _ENCDEC = ModelApi(
     init=encdec.init_encdec,
     forward=encdec.forward,
@@ -57,6 +67,8 @@ _ENCDEC = ModelApi(
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
+    if isinstance(cfg, Zamba2Config):
+        return _ZAMBA2
     if cfg.family in ("dense", "vlm", "moe", "ssm"):
         return _TRANSFORMER
     if cfg.family == "hybrid":

@@ -68,9 +68,12 @@ def gqa_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
               cache_pos: Optional[torch.Tensor] = None,
               cache_idx: Optional[int] = None,
               window: int = 0, causal: bool = True, kv_mult: int = 1,
-              impl: Optional[str] = None, chunk: int = 0
-              ) -> Tuple[torch.Tensor, dict]:
-    """positions: ``[S]`` int32 absolute positions of the inputs.
+              impl: Optional[str] = None, chunk: int = 0,
+              scale: Optional[float] = None) -> Tuple[torch.Tensor, dict]:
+    """positions: ``[S]`` int32 absolute positions of the inputs.  The
+    input width is the projections' (``concat(x, x0)`` in the published
+    Zamba2), the output width ``wo``'s; ``scale`` None is
+    ``head_dim ** -0.5``.
 
     * cache=None: full-sequence attention (prefill / teacher forcing);
       returns ``(out, {"k", "v"})`` with M=S so the caller may build a
@@ -82,7 +85,8 @@ def gqa_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
     q, k, v = _project_qkv(p, x, cfg, kv_mult)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    kw = dict(causal=causal, window=window, impl=impl, chunk=chunk)
+    kw = dict(causal=causal, window=window, impl=impl, chunk=chunk,
+              scale=scale)
 
     if cache is None:
         out = ops.attention(q, k, v, positions, positions, **kw)

@@ -94,13 +94,29 @@ def _conv_step(hist: torch.Tensor, w: torch.Tensor,
     return torch.einsum("bkc,kc->bc", hist, w[:, 0, :]) + b
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, p, eps: float,
+               groups: int = 1) -> torch.Tensor:
+    """``RMSNorm(y * SiLU(z))`` with the mean square taken over each of
+    ``groups`` equal groups of the last axis (one group: the whole
+    axis, as the reference has it)."""
+    h = y * F.silu(z)
+    if groups == 1:
+        return rms_norm(h, p, eps)
+    dt = h.dtype
+    hg = h.float().unflatten(-1, (groups, -1))
+    hg = hg * torch.rsqrt(hg.square().mean(-1, keepdim=True) + eps)
+    return (hg.flatten(-2) * p["scale"].float()).to(dt)
+
+
 def mamba2_apply(p, u: torch.Tensor, cfg: ArchConfig, *,
                  cache: Optional[dict] = None, return_cache: bool = False,
-                 impl: Optional[str] = None
+                 impl: Optional[str] = None, norm_groups: int = 1
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     """u ``[B, S, d]``.  With ``cache`` (decode) S must be 1 and the
     cache is advanced in place and returned; ``return_cache`` on the
-    full-sequence path returns the post-prefill conv and SSM state."""
+    full-sequence path returns the post-prefill conv and SSM state.
+    ``norm_groups`` groups the gated norm (``gated_norm``): the
+    published Zamba2 takes ``ssm.n_groups``, the reference one."""
     s = cfg.ssm
     B, S, d = u.shape
     di = s.d_inner(d)
@@ -150,5 +166,5 @@ def mamba2_apply(p, u: torch.Tensor, cfg: ArchConfig, *,
         new_cache = cache
         y = y.to(u.dtype).reshape(B, 1, di)
 
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = gated_norm(y, z, p["norm"], cfg.norm_eps, norm_groups)
     return y @ p["out_proj"], new_cache

@@ -40,6 +40,15 @@ open on the thread.  The tree, by the names a profiler trace shows
       flush.combine         forest, regression, Eq. 5
     ingest                  one ``DeviceIngest.ingest`` call
       ingest.lock           acquiring ``DeviceIngest.lock``
+    lm.prefill              one prefill of the LM path (``ident``: the
+                            caller's group of sessions)
+    lm.step                 one decode step of the served batch
+                            (``ident``: its position ``idx``)
+      lm.mamba              one run of consecutive Mamba layers
+      lm.shared             one invocation of a shared block (Zamba2)
+        lm.shared.attn      its norm, projections, attention and output
+        lm.shared.mlp       its norm, MLP, adapter and linear
+      lm.head               the final norm and the logits
 
 Each span takes its start and end on ``time.monotonic`` and the
 thread's CPU time at both ends (``time.thread_time_ns``), so wall minus
@@ -58,7 +67,11 @@ with no span: the server's ``server.wait``.
 
 With no sink open on the thread — the server has no tracer, the ingest
 no tracer — ``span()`` costs one thread-local load and a test, and
-opens no ``record_function`` even while a profiler runs.
+opens no ``record_function`` even while a profiler runs.  ``count(name,
+n)`` adds ``n`` to the open tree's ``counts[name]`` at the same cost
+(an LM step counts ``kv_positions``, the K/V positions its attention
+reads summed over sessions and invocations, and ``launches``, its
+kernels' launches).
 
 Failure paths are first-class: a NaN retirement carries
 ``status="failed"`` and a watchdog kill ``status="watchdog"``, so the
@@ -111,15 +124,17 @@ class SpanTree:
     """The spans of one unit of work on one thread (a flush, an ingest
     call): the root ``spans[0]`` named ``kind``, then every span in the
     order it opened.  ``ident`` is a flush's flush_id, ``stages`` the
-    summed seconds of its marshal, dispatch and gather spans."""
+    summed seconds of its marshal, dispatch and gather spans, ``counts``
+    the counters ``count`` added while it was open."""
 
-    __slots__ = ("kind", "ident", "spans", "stages", "_open")
+    __slots__ = ("kind", "ident", "spans", "stages", "counts", "_open")
 
     def __init__(self, kind: str, ident: int = 0):
         self.kind = kind
         self.ident = ident
         self.spans: List[Span] = []
         self.stages: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
         self._open: List[Tuple[int, int]] = []    # (index, CPU ns at open)
 
     @property
@@ -181,6 +196,14 @@ def span(name: str):
     if tree is None:
         return _OFF
     return _Open(tree, name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to ``counts[name]`` of the tree open on this thread;
+    nothing when no ``collect()`` sink is open here."""
+    tree = getattr(_tls, "sink", None)
+    if tree is not None:
+        tree.counts[name] = tree.counts.get(name, 0) + n
 
 
 def annotate(name: str):

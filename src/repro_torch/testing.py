@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as kdecode
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ref
 
 RTOL = 1e-4
@@ -221,8 +222,9 @@ def flash_attention_tiles(q: torch.Tensor, k: torch.Tensor,
                           window: int = 0, scale: Optional[float] = None,
                           passes: Optional[int] = 3) -> torch.Tensor:
     """A plain model of the CUDA ``flash_attention``'s order of work
-    (``csrc/flash_attention.cu``): blocks of 128 query rows, warps of
-    16; key tiles of 64 keys (32 at D > 128) visited in order, a tile
+    (``csrc/flash_attention.cu``): blocks of 128 query rows, warps of 16;
+    key tiles of 64 keys (32 at D > 128, 16 at D > 192;
+    ``kflash.tile_plan``) visited in order, a tile
     skipped unless it is live for the block's and for the warp's query
     positions (``_tile_live``), K/V rows past T read as zeros with ``kpos
     = -1``; in each tile S = Q K^T summed by the kernel's stages of D
@@ -239,8 +241,8 @@ def flash_attention_tiles(q: torch.Tensor, k: torch.Tensor,
     B, S, Hq, D = q.shape
     T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     g = Hq // Hkv
-    block_q, warp_rows = 128, 16
-    bk = 32 if D > 128 else 64
+    plan = kflash.tile_plan(D, Dv)
+    block_q, warp_rows, bk = plan["bq"], 16, plan["bk"]
     c = (D ** -0.5 if scale is None else scale) * math.log2(math.e)
     n_tiles = -(-T // bk)
     pad = n_tiles * bk - T
@@ -357,8 +359,9 @@ def decode_pv_groups(Dv: int, path: str) -> int:
 
 # (label, B, Hkv, g, T, D, Dv, v_in_k, path, pieces, (slots, blocks an
 # SM)): the served decode steps (B = 4; a 2081-slot ring, smollm's 97,
-# seamless's cross step over 1024 frames), as the kernel's layout (the
-# C plan) gives them on 132 SMs
+# seamless's cross step over 1024 frames; the published Zamba2's 8
+# sessions over a 4096-slot ring, two waves of one block an SM), as the
+# kernel's layout (the C plan) gives them on 132 SMs
 SERVED_DECODE_PLANS = [
     ("deepseek absorbed", 4, 1, 16, 2081, 576, 512, True, "tensor_cores",
      33, (2, 1)),
@@ -368,6 +371,8 @@ SERVED_DECODE_PLANS = [
     ("smollm-360m", 4, 5, 3, 97, 64, 64, False, "cuda_cores", 1, (4, 2)),
     ("zamba2-7b", 4, 32, 1, 2081, 112, 112, False, "cuda_cores", 2,
      (3, 2)),
+    ("zamba2-7b-instruct", 8, 32, 1, 4096, 224, 224, False, "cuda_cores",
+     1, (3, 1)),
     ("seamless cross", 4, 16, 1, 1024, 64, 64, False, "cuda_cores", 4,
      (6, 2)),
 ]

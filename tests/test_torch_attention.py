@@ -210,7 +210,8 @@ def test_decode_merge_order_model_gives_zeros_without_a_visible_key():
 # key tiles of 64 or 32 at D = 192, tile skips, 3xTF32 products in stages
 # of 32 of D, the last one 16 at D = 112) at D = 128, (192, 128) and
 # zamba2's (112, 112), S and T off the tiles, a window, g = 1 and 4, and
-# seamless's cross-attention (not causal, all-zero positions, T != S)
+# seamless's cross-attention (not causal, all-zero positions, T != S);
+# the published Zamba2's (224, 224) in tiles of 16 keys
 TILE_CASES = [
     (1, 150, 150, 4, 1, 128, 128, True, 0),       # g = 4, two q blocks
     (2, 70, 90, 2, 2, 192, 128, True, 0),         # MLA widths, S < T
@@ -219,6 +220,8 @@ TILE_CASES = [
     (1, 200, 260, 2, 1, 16, 16, True, 24),        # window cuts k8 steps
     (1, 150, 150, 2, 2, 112, 112, True, 0),       # zamba2: D = 112, g = 1
     (2, 40, 100, 2, 2, 64, 64, False, 0, "zero positions"),   # cross
+    (1, 150, 170, 2, 2, 224, 224, True, 0),       # Zamba2: 2 q blocks
+    (1, 70, 90, 2, 1, 224, 224, False, 0),        # not causal, g = 2
 ]
 
 
@@ -256,6 +259,24 @@ def test_flash_stages_follow_the_kernel():
         cols = [c for d0, w in flash_stages(D) for c in range(d0, d0 + w)]
         assert cols == list(range(D)) and all(
             w % 8 == 0 for _, w in flash_stages(D))
+
+
+def test_flash_tile_plan_fits_a_block():
+    """``tile_plan`` is the source's ``Cfg``: every (D, Dv) the wrapper
+    takes fits a block's shared memory in 128 query rows of 8 warps; at
+    (224, 224) two slots of 32 keys would not (233,728 bytes), so the
+    tiles take 16 keys."""
+    for D, Dv in kflash.HEAD_DIMS:
+        plan = kflash.tile_plan(D, Dv)
+        assert plan["smem"] <= kflash.SMEM_MAX, (D, Dv)
+        assert (plan["bq"], plan["warps"]) == (128, 8)
+        assert plan["bk"] == (16 if (D, Dv) == (224, 224) else
+                              32 if D > 128 else 64)
+    plan = kflash.tile_plan(224, 224)
+    assert (plan["bk"], plan["smem"]) == (16, 175232)
+    slot = 32 * 2 * kflash.pad_ld(224) + 32
+    assert 4 * (128 * kflash.pad_ld(224) + 2 * slot) == 233728 \
+        > kflash.SMEM_MAX
 
 
 def test_flash_tile_model_skips_what_no_row_of_a_warp_sees():

@@ -12,7 +12,8 @@ plain versions to against the JAX package, and the mamba short conv
 float4 paths, a wrap inside a float4, ``L = cap`` and ``L > cap``; the
 ``flash_attention`` cases cover causal and windowed prefill, ragged
 ``S``/``T``, every (D, Dv) instantiation with the materialized MLA
-prefill (D = 192, Dv = 128) and zamba2's (112, 112), g = 3, several
+prefill (D = 192, Dv = 128), zamba2's (112, 112) and the published
+Zamba2's (224, 224) in tiles of 16 keys, g = 3, several
 query blocks, two passes of key-tile liveness and seamless's
 cross-attention (not causal, all-zero positions, T != S), each also
 bitwise repeatable; the
@@ -20,7 +21,8 @@ bitwise repeatable; the
 slots, a partly filled ring, the rolled ring of a windowed decode, ``g``
 in {1, 3, 4, 16, 48}, the materialized MLA step (192 / 128), the
 absorbed one (576 / 512, v a strided view of k's rows), zamba2's step
-(g = 1, D = 112) and seamless's cross step; the ``ssd``
+(g = 1, D = 112), the published Zamba2's served step (8 sessions, g =
+1, D = 224, a 4096-slot ring) and seamless's cross step; the ``ssd``
 cases ragged S, an initial state, G in {1, 2} and the served tiles
 (chunk 128, P = 64, N = 128 and zamba2's N = 64); the ``moe_gmm`` cases
 C and f off the tiles, at most 16 rows an expert (the decode tile) and
@@ -282,6 +284,15 @@ ATTN_CASES = [
     (2, 130, 130, 4, 4, 112, True, 0, 130, 0),      # g = 1, ragged
     (1, 300, 300, 4, 4, 112, True, 48, 300, 0),     # windowed
     (1, 100, 140, 6, 2, 112, False, 0, 140, 0),     # not causal, T != S
+    # the published Zamba2's (224, 224): tiles of 16 keys (a lane of a
+    # kpos pass past them reads none), 7 stages of Q K^T, P V in passes
+    # of 7; S and T off the tiles
+    (2, 150, 150, 4, 4, 224, True, 0, 150, 0),      # causal, 2 q blocks
+    (1, 70, 101, 2, 2, 224, True, 0, 101, 0),       # S, T off the tiles
+    (1, 100, 140, 4, 2, 224, False, 0, 140, 0),     # not causal, g = 2
+    (1, 200, 200, 2, 2, 224, True, 48, 200, 0),     # windowed
+    (1, 300, 300, 2, 2, 224, True, 0, 300, 0),      # 3 q blocks
+    (1, 40, 17000, 2, 2, 224, True, 0, 17000, 0),   # two passes
 ]
 
 # decode steps (S = 1), the same fields; the first four were the S = 1
@@ -307,6 +318,9 @@ DECODE_CASES = [
     # causal, T = 1024 frames)
     (4, 1, 2081, 32, 32, 112, True, 0, 2065, 0),
     (4, 1, 1024, 16, 16, 64, False, 0, 1024, 0),
+    # the published Zamba2's served step: 8 sessions, g = 1, D = 224, a
+    # 4096-slot ring filled to 3700
+    (8, 1, 4096, 32, 32, 224, True, 0, 3700, 0),
 ]
 
 
@@ -388,7 +402,9 @@ def test_cuda_flash_attention_checks_its_inputs(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [ATTN_CASES[0], ATTN_CASES[6],
                                   ATTN_CASES[12], ATTN_CASES[15],
-                                  ATTN_CASES[17], ATTN_CASES[19]],
+                                  ATTN_CASES[17], ATTN_CASES[19],
+                                  ATTN_CASES[20], ATTN_CASES[21],
+                                  ATTN_CASES[25]],
                          ids=lambda c: "-".join(map(str, c)))
 def test_cuda_flash_attention_is_bitwise_repeatable(cuda_device, case):
     causal, window = case[6], case[7]
@@ -876,6 +892,50 @@ def test_cuda_hybrid_and_encdec_match_plain(cuda_device, arch):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert kdecode.launches.value == before + 2 * per_step
+    np.testing.assert_allclose(lg.cpu().numpy(), full[:, 39].cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_published_zamba2_matches_plain(cuda_device):
+    """The published Zamba2 (reduced widths, 2 heads of 224 over the
+    concatenated 512-wide input, 3 layers with both shared blocks
+    invoked) on the card: prefill into batch rows of a preallocated
+    cache through exactly 2 ``flash_attention`` (224, 224), 3 ``ssd``
+    and 9 ``conv1d_stripe``, within the tolerance of the plain
+    versions; a decode step issues no host sync and launches 2
+    ``decode_attention``s; cached decode against the teacher-forced
+    forward (2e-3, as ``test_cuda_hybrid_and_encdec_match_plain``)."""
+    cfg = dataclasses.replace(get_config("zamba2-7b-instruct-reduced"),
+                              n_heads=2, n_kv_heads=2, head_dim=224)
+    rt = RuntimeOptions()
+    m = get_model(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = m.init(gen, cfg, rt, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device=cuda_device)
+    counters = (kflash.launches, kdecode.launches, kssd.launches,
+                kconv.launches)
+    before = [c.value for c in counters]
+    cache = m.init_cache(cfg, rt, 2, 41, cuda_device)
+    for r in range(2):
+        lg, cache = m.prefill(params, toks[r:r + 1, :38], cfg, rt,
+                              cache=cache, rows=slice(r, r + 1))
+        plain, _ = m.prefill(params, toks[r:r + 1, :38], cfg,
+                             RuntimeOptions(impl="torch"), max_len=41)
+        assert_close(lg, plain)
+    got = [c.value - b for c, b in zip(counters, before)]
+    assert got == [4, 0, 6, 18], got
+    full, _ = m.forward(params, toks, cfg, rt)
+    before = kdecode.launches.value
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(2):
+            lg, cache = m.decode_step(params, cache, toks[:, 38 + t], cfg,
+                                      rt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kdecode.launches.value == before + 4
     np.testing.assert_allclose(lg.cpu().numpy(), full[:, 39].cpu().numpy(),
                                rtol=2e-3, atol=2e-3)
 
