@@ -119,6 +119,11 @@ class CaptureLaunches:
         _capturing.tally = None
 
 
+# the caching allocator keeps one CUDA graph capture underway a process
+# at a time: every capture holds this lock
+CAPTURE_LOCK = threading.Lock()
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME",

@@ -71,8 +71,13 @@ def greedy_step(model: ModelApi, params, cache, tok: torch.Tensor,
     then the greedy next tokens on the device.  Returns (logits ``[B,
     V_padded]``, next tokens ``[B]`` int32, the advanced cache).  With
     ``trees`` the step runs inside a span sink ``lm.step`` (ident: its
-    position) whose tree, with its ``launches`` counter (and the
-    model's ``kv_positions``), is appended to ``trees``."""
+    position) whose tree, with its ``launches`` and ``graph_replays``
+    counters (and the model's ``kv_positions``), is appended to
+    ``trees``: ``graph_replays`` is the CUDA graphs the step replayed
+    (the published Zamba2's step on the card), 0 where it issued every
+    op from Python.  That span ends when the card has done the step's
+    work: a replayed step's issue takes a few milliseconds, and the
+    span's wall is the step's, not its issue's."""
     if trees is None:
         logits, cache = model.decode_step(params, cache, tok, cfg, rt)
         return logits, torch.argmax(logits, -1).to(torch.int32), cache
@@ -81,6 +86,8 @@ def greedy_step(model: ModelApi, params, cache, tok: torch.Tensor,
         logits, cache = model.decode_step(params, cache, tok, cfg, rt)
         nxt = torch.argmax(logits, -1).to(torch.int32)
         count("launches", _build.total_launches() - n0)
+        count("graph_replays", 0)
+        _sync(nxt.device)
     trees.append(tree)
     return logits, nxt, cache
 

@@ -23,7 +23,7 @@ for S = 1 on the card).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -63,10 +63,20 @@ def _project_qkv(p, x, cfg: ArchConfig, kv_mult: int):
     return q, k, v
 
 
+def _ring_slot(cache_idx: Union[int, torch.Tensor], M: int,
+              device: torch.device) -> torch.Tensor:
+    """The ring slot ``cache_idx % M`` as a ``[1]`` int64 index on
+    ``device``: from a host int, one fill (no copy from the host); from
+    a ``[1]`` int tensor on the card, computed there."""
+    if isinstance(cache_idx, torch.Tensor):
+        return torch.remainder(cache_idx, M).long()
+    return torch.full((1,), cache_idx % M, dtype=torch.long, device=device)
+
+
 def gqa_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
               *, cache: Optional[dict] = None,
               cache_pos: Optional[torch.Tensor] = None,
-              cache_idx: Optional[int] = None,
+              cache_idx: Union[int, torch.Tensor, None] = None,
               window: int = 0, causal: bool = True, kv_mult: int = 1,
               impl: Optional[str] = None, chunk: int = 0,
               scale: Optional[float] = None) -> Tuple[torch.Tensor, dict]:
@@ -81,6 +91,10 @@ def gqa_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
     * cache given: decode, S == 1; writes slot ``cache_idx % M`` of
       ``cache`` and ``cache_pos`` in place and attends to the whole ring
       (``cache_pos < 0`` = empty).  Returns ``(out, cache)``.
+      ``cache_idx`` is the cache's own index (not ``positions``): a host
+      int, or a ``[1]`` int tensor on the cache's device, which a CUDA
+      graph can capture.  Either way the slot is written by a device
+      index (``_ring_slot``), so the write is one path for both.
     """
     q, k, v = _project_qkv(p, x, cfg, kv_mult)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -93,10 +107,10 @@ def gqa_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
         new_kv = {"k": k, "v": v}
     else:
         M = cache["k"].shape[1]
-        slot = cache_idx % M
-        cache["k"][:, slot:slot + 1] = k
-        cache["v"][:, slot:slot + 1] = v
-        cache_pos[slot:slot + 1] = positions
+        slot = _ring_slot(cache_idx, M, cache_pos.device)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        cache_pos.index_copy_(0, slot, positions.to(cache_pos.dtype))
         out = ops.attention(q, cache["k"], cache["v"], positions, cache_pos,
                             **kw)
         new_kv = cache

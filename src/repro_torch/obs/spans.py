@@ -44,7 +44,9 @@ open on the thread.  The tree, by the names a profiler trace shows
                             caller's group of sessions)
     lm.step                 one decode step of the served batch
                             (``ident``: its position ``idx``)
-      lm.mamba              one run of consecutive Mamba layers
+      lm.mamba              one run of consecutive Mamba layers (each
+                            leaf of ``lm.step`` one replayed CUDA graph
+                            on the card)
       lm.shared             one invocation of a shared block (Zamba2)
         lm.shared.attn      its norm, projections, attention and output
         lm.shared.mlp       its norm, MLP, adapter and linear
@@ -70,8 +72,8 @@ no tracer — ``span()`` costs one thread-local load and a test, and
 opens no ``record_function`` even while a profiler runs.  ``count(name,
 n)`` adds ``n`` to the open tree's ``counts[name]`` at the same cost
 (an LM step counts ``kv_positions``, the K/V positions its attention
-reads summed over sessions and invocations, and ``launches``, its
-kernels' launches).
+reads summed over sessions and invocations, ``launches``, its kernels'
+launches, and ``graph_replays``, the CUDA graphs it replayed).
 
 Failure paths are first-class: a NaN retirement carries
 ``status="failed"`` and a watchdog kill ``status="watchdog"``, so the

@@ -153,8 +153,6 @@ class _FlushGraph:
     launches: Dict["_build.LaunchCount", int]
 
 
-# the caching allocator keeps one capture underway a process at a time
-_CAPTURE_LOCK = threading.Lock()
 
 
 # representative flush rung for placement-planning cost measurement:
@@ -461,7 +459,7 @@ class EnsembleService:
         packs = {L: torch.zeros((p, ECG_LEADS, L), device=self.device)
                  for L in sorted({b.spec.input_len for b in buckets})}
         graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK, _build.CaptureLaunches() as launches:
+        with _build.CAPTURE_LOCK, _build.CaptureLaunches() as launches:
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             with torch.cuda.graph(graph, pool=self._graph_pool,

@@ -293,3 +293,51 @@ def test_flash_tile_model_skips_what_no_row_of_a_warp_sees():
     want = jref.attention(*_j(q, k, v, qpos, kpos))
     assert_close(got[:, 16:], np.asarray(want)[:, 16:])
     assert_close(np.asarray(want)[0, 0, 0], v[0].mean(0)[0])
+
+
+@pytest.mark.parametrize("idx", [5, 15, 21])
+def test_gqa_ring_write_by_device_index_equals_the_slice(idx):
+    """A GQA decode step writes slot ``idx % M`` of a 16-slot ring by a
+    device index: with ``idx`` a host int or a ``[1]`` tensor, before the
+    ring is full, at its last slot and wrapped (a window ring), the K/V
+    rings and ``cache_pos`` equal the sliced write it replaced, bitwise,
+    and so does the attention over them.  The query's position is not
+    the ring index."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import apply_rope, linear
+
+    cfg = get_config("qwen3-4b-reduced")
+    B, M = 2, 16
+    gen = torch.Generator().manual_seed(idx)
+    p = attn.init_gqa(gen, cfg, torch.float32, "cpu")
+    x = torch.randn((B, 1, cfg.d_model), generator=gen)
+    positions = torch.full((1,), idx + 40, dtype=torch.int32)
+    ring = {name: torch.randn((B, M, cfg.n_kv_heads, cfg.head_dim),
+                              generator=gen) for name in ("k", "v")}
+    pos = torch.arange(M, dtype=torch.int32) + 30
+
+    q, k, v = attn._project_qkv(p, x, cfg, 1)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    slot = idx % M
+    want = {name: t.clone() for name, t in ring.items()}
+    want["k"][:, slot:slot + 1] = k
+    want["v"][:, slot:slot + 1] = v
+    want_pos = pos.clone()
+    want_pos[slot:slot + 1] = positions
+    out = ops.attention(q, want["k"], want["v"], positions, want_pos,
+                        causal=True)
+    want_out = linear(p["wo"], out.reshape(B, 1, -1))
+
+    for cache_idx in (idx, torch.full((1,), idx, dtype=torch.int32)):
+        got = {name: t.clone() for name, t in ring.items()}
+        got_pos = pos.clone()
+        got_out, new = attn.gqa_apply(p, x, positions, cfg, cache=got,
+                                      cache_pos=got_pos,
+                                      cache_idx=cache_idx)
+        assert new is got
+        for name in ("k", "v"):
+            assert torch.equal(got[name], want[name]), name
+        assert torch.equal(got_pos, want_pos)
+        assert torch.equal(got_out, want_out)

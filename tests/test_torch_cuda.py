@@ -940,6 +940,97 @@ def test_cuda_published_zamba2_matches_plain(cuda_device):
                                rtol=2e-3, atol=2e-3)
 
 
+def _clone_cache(cache):
+    """Every tensor of a Zamba2 cache copied, and its ``idx``."""
+    return {"mamba": {k: v.clone() for k, v in cache["mamba"].items()},
+            "attn": {k: v.clone() for k, v in cache["attn"].items()},
+            "pos": cache["pos"].clone(),
+            "position": cache["position"].clone(), "idx": cache["idx"]}
+
+
+def _assert_same_cache(got, want, when):
+    for k in want["mamba"]:
+        assert_bitwise(got["mamba"][k], want["mamba"][k], f"{when} {k}")
+    for k in ("k", "v"):
+        assert_bitwise(got["attn"][k], want["attn"][k], f"{when} {k}")
+    assert_bitwise(got["pos"], want["pos"], f"{when} pos")
+    assert_bitwise(got["position"], want["position"], f"{when} position")
+    assert got["idx"] == want["idx"] == int(want["position"][0]), when
+
+
+@pytest.mark.cuda
+def test_cuda_published_zamba2_step_graphs_are_bitwise_the_eager_step(
+        cuda_device):
+    """The published Zamba2 at its published widths, cut to 5 layers
+    with both shared blocks invoked (before layers 1 and 3: 3 Mamba
+    runs, 2 invocations, 8 leaf spans a step): 8 sessions prefilled into
+    an ``init_cache``, then 6 steps from that state twice, through
+    ``decode_step`` (the first step eager, the second captures one CUDA
+    graph a leaf span, every step from the second replays them) and
+    through the eager step alone.  Every step's logits and next tokens
+    and, after the steps, every cache leaf are bitwise equal; the step
+    trees count ``graph_replays`` 0, then 8 (the leaf spans), and the
+    same ``launches`` as the eager step (one ``decode_attention`` an
+    invocation).  A second prefill into rows of the same caches, then 3
+    more steps: the graphs replay on, still bitwise the eager step, and
+    a replayed step issues no host sync."""
+    from repro_torch.launch.serve import greedy_step
+    from repro_torch.models import zamba2
+    from repro_torch.obs.spans import collect
+
+    cfg = dataclasses.replace(get_config("zamba2-7b-instruct"),
+                              num_layers=5, hybrid_layer_ids=(1, 3))
+    rt = RuntimeOptions()
+    m = get_model(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = m.init(gen, cfg, rt, cuda_device)
+    B, S = 8, 64
+    toks = torch.randint(0, cfg.vocab_size, (2, B, S), generator=gen,
+                         device=cuda_device)
+    graphed = m.init_cache(cfg, rt, B, S + 16, cuda_device)
+    lg, graphed = m.prefill(params, toks[0], cfg, rt, cache=graphed,
+                            rows=slice(0, B))
+    eager = _clone_cache(graphed)
+    tok_g = tok_e = torch.argmax(lg, -1).to(torch.int32)
+    leaves = 3 + 2 * 2 + 1
+
+    def steps(n, first):
+        nonlocal tok_g, tok_e
+        for i in range(n):
+            trees = []
+            if first + i > 2:           # a replay, captured before
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                lg_g, tok_g, _ = greedy_step(m, params, graphed, tok_g, cfg,
+                                             rt, trees=trees)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            n0 = kdecode.launches.value
+            with collect("lm.step", eager["idx"]) as tree:
+                lg_e, _ = zamba2._eager_step(params, eager, tok_e, cfg, rt)
+            launched = kdecode.launches.value - n0
+            tok_e = torch.argmax(lg_e, -1).to(torch.int32)
+            step = f"step {first + i}"
+            assert_bitwise(lg_g, lg_e, step)
+            assert_bitwise(tok_g, tok_e, step)
+            got = trees[0].counts
+            assert got["graph_replays"] == (0 if first + i == 1 else leaves)
+            assert got["launches"] == launched == 2, step
+            assert got["kv_positions"] == tree.counts["kv_positions"]
+
+    steps(6, 1)
+    _assert_same_cache(graphed, eager, "after 6 steps")
+    graphs = graphed["graphs"]
+    assert len(graphs.graphs) == leaves
+    for cache in (graphed, eager):
+        _, cache = m.prefill(params, toks[1, :4], cfg, rt, cache=cache,
+                             rows=slice(0, 4))
+    _assert_same_cache(graphed, eager, "after the second prefill")
+    steps(3, 7)
+    _assert_same_cache(graphed, eager, "after 3 more steps")
+    assert graphed["graphs"] is graphs
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("absorbed", [False, True])
 def test_cuda_mla_lm_matches_plain_and_decode_never_syncs(cuda_device,
